@@ -4,23 +4,41 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
 1. prints the card (``nvidia-smi``), the torch and CUDA versions, and
-   builds the kernels of ``tpu_vector_db_torch/csrc`` with nvcc;
+   builds the kernels of ``tpu_vector_db_torch/csrc`` with nvcc, one
+   nvcc per source, all at once;
 2. holds each flat-scan kernel against its plain torch version on the
    card at 1M x 768 rows (f32, bf16, int8, int4; batch 1 and 64; a
-   filtered case, a case with count < N, a euclidean case) and times the
-   kernel, the plain version and ``torch.matmul`` + ``torch.topk`` (a
-   yardstick only: the port never calls it);
-3. drives the exact flat store through ``create_vector_store(...,
-   device="cuda")`` on four paths, each with the launch counts set to 0
-   just before it and read just after: the main path, 1M x 768 f32 cosine
-   with metadata (batch 1 and 64, top-100, filter, delete, self-query,
+   filtered case, a case with count < N, a euclidean case; big-k cases
+   past the TPU kernel's k = 1024, up to k = 20000) and times the kernel,
+   the plain version and ``torch.matmul`` + ``torch.topk`` (a yardstick
+   only: the port never calls it);
+3. holds the IVF probe kernel against its plain version on 2048 buckets
+   of 1024 x 768 rows (f32 and bf16; batch 1, 8, 64; nprobe 32, 64 and
+   every bucket; k 10 and 32; partly filled buckets) and times the
+   kernel, the plain version and ``index_select`` + ``bmm`` + ``topk`` (a
+   composition used as a yardstick only);
+4. drives the store through ``create_vector_store(..., device="cuda")`` on
+   six paths, each with the launch counts set to 0 just before it and
+   read just after: the main path, 1M x 768 f32 cosine with metadata
+   (batch 1 and 64, top-100, top-2000, filter, delete, self-query,
    recall@10 against an exact ground truth); BASELINE config #2, 1M x 128
    euclidean top-100 at batch 64; config #4, 1M x 1536 bf16 (batch 1 and
-   64, rerank); config #1, a flush + reopen at 100K x 384. After each path
-   the kernels are held against their plain version once more on that
-   store's own rows, masks, batch sizes and k;
-4. prints one JSON line of the kernels (launches from the main path), the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+   64, rerank top-10 and top-300); config #1, a flush + reopen at 100K x
+   384; ``ivf``, BASELINE config #3's regime: 1M x 768 f32 clustered rows
+   with ``enable_ann=True`` (the IVF index built on add, extended with
+   spills, rebuilt by ``optimize()``; batch 1 and 8 through the IVF
+   kernel, recall@10 of 64 queries, a full probe equal to the flat scan,
+   batch 64 and top-100 routed to the exact scan, and batches 32 and 64
+   timed both through the exact scan and through the IVF kernel with
+   ``index_type="ivf"``); ``ivf_small``, 200K x
+   384 bf16 with ``enable_ann=True``, flushed and reopened, the index
+   served from its sidecar without a rebuild. After each path the kernels
+   are held against their plain version once more on that store's own
+   rows, buckets, masks, batch sizes and k;
+5. prints one JSON line of the kernels (launches from each kernel's
+   headline path: ``main`` for the flat kernels, ``ivf`` for the IVF
+   kernel), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Every phase that fails makes the script exit non-zero. Without a CUDA
 device, or without the package beside it, it exits 2 and prints no
@@ -39,6 +57,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,13 +70,24 @@ PEAK_OPS = {"float32": 67e12,      # CUDA cores, f32
 # f32 accumulation in another order: absolute on unit-row keys, relative
 # to the key on euclidean keys, which grow with d and ||x||^2
 KEY_TOL = 1e-4
-SOURCE = "tpu_vector_db_torch/csrc/flat_topk.cu"
+SOURCE = {"scan_kernel": "tpu_vector_db_torch/csrc/flat_topk.cu",
+          "scan_kernel_bigk": "tpu_vector_db_torch/csrc/flat_topk.cu",
+          "ivf_kernel": "tpu_vector_db_torch/csrc/ivf_topk.cu"}
 REPLACES = {"scan_kernel": "tpu_vector_db/ops/pallas_scan.py:112",
-            "scan_kernel_bigk": "tpu_vector_db/ops/pallas_scan.py:259"}
-# the kernel case each kernel's timings in the kernels line come from: the
-# shape the main path gives it (top-10 at batch 64, top-100 at batch 1)
+            "scan_kernel_bigk": "tpu_vector_db/ops/pallas_scan.py:259",
+            "ivf_kernel": "tpu_vector_db/ops/ivf_scan.py:40"}
+# the path whose launch counts stand in the kernels line, and the case its
+# timings come from: the shape that path gives the kernel (flat top-10 at
+# batch 64 and top-100 at batch 1 on the main path; an IVF top-10 query at
+# batch 1 on the ivf path's own index, timed there)
+HEADLINE_PATH = {"scan_kernel": "main", "scan_kernel_bigk": "main",
+                 "ivf_kernel": "ivf"}
 HEADLINE = {"scan_kernel": ("float32", 64, 10),
             "scan_kernel_bigk": ("float32", 1, 100)}
+LIBRARIES = ("flat_topk", "ivf_topk")
+# the IVF yardstick: no single torch call computes the probe, so it is a
+# composition, timed beside the kernel and never called by the port
+IVF_YARDSTICK = "index_select + bmm + topk (composition)"
 
 
 class SmokeFailure(RuntimeError):
@@ -100,22 +130,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 # --------------------------------------------------------------- phase 1
 
 def phase_build() -> None:
+    """One nvcc per source, all started together."""
     from tpu_vector_db_torch.ops import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        path, log = _build.build(name, extra_flags=("-Xptxas", "-v"))
+        return name, path, log, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path, log = _build.build("flat_topk", extra_flags=("-Xptxas", "-v"))
-    seconds = time.perf_counter() - t0
-    # the compiler's per-kernel report, beside the library it describes
-    path.with_suffix(".ptxas.txt").write_text(log)
-    regs = [int(w) for line in log.splitlines() if "registers" in line
-            for w, nxt in zip(line.split(), line.split()[1:])
-            if nxt.startswith("registers")]
-    spills = [m for m in re.finditer(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-        if int(m.group(1)) or int(m.group(2))]
-    info = {"phase": "build", "library": str(path.relative_to(REPO)),
-            "seconds": seconds, "max_registers": max(regs, default=None),
-            "kernels_with_spills": len(spills)}
-    emit(info)
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(one, LIBRARIES))
+    total = time.perf_counter() - t0
+    for name, path, log, seconds in built:
+        # the compiler's per-kernel report, beside the library it describes
+        path.with_suffix(".ptxas.txt").write_text(log)
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt.startswith("registers")]
+        spills = [m.group(0) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+            if int(m.group(1)) or int(m.group(2))]
+        emit({"phase": "build", "source": f"csrc/{name}.cu",
+              "library": str(path.relative_to(REPO)), "seconds": seconds,
+              "all_sources_seconds": total,
+              "max_registers": max(regs, default=None),
+              "kernels_with_spills": len(spills), "spills": spills})
 
 
 # --------------------------------------------------------------- phase 2
@@ -164,6 +204,7 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
     headline case, max |key diff| of each kernel)."""
     import torch
     from tpu_vector_db_torch.ops import cuda_scan
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
     from tpu_vector_db_torch.ops.quant4 import (pack_int4,
                                                 quantize_unit_rows,
                                                 unpack_int4)
@@ -194,6 +235,10 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         cases.append(("float32", 64, k, "cosine", "filtered", n))
         cases.append(("float32", 64, k, "cosine", None, n - 12345))
         cases.append(("float32", 64, k, "euclidean", None, n))
+    # big-k past the TPU kernel's k = 1024: shared-memory regions up to
+    # k = 8192, device-memory scratch past it
+    for k, q_n in ((1025, 1), (1025, 64), (4000, 1), (4000, 64), (20000, 1)):
+        cases.append(("float32", q_n, k, "cosine", None, n))
 
     headline: dict[str, dict] = {}
     errs: dict[str, float] = {}
@@ -205,10 +250,10 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         name = cuda_scan.kernel_name(k)
         kwargs = dict(metric=metric, db_sqnorms=sq, filter_mask=fm,
                       db_scales=scl)
-        before = cuda_scan.LAUNCHES[name]
+        before = LAUNCHES[name]
         keys, ids = cuda_scan.flat_topk(q, db, count, k, **kwargs)
         torch.cuda.synchronize()
-        launches = cuda_scan.LAUNCHES[name] - before
+        launches = LAUNCHES[name] - before
         pkeys, pids = cuda_scan.flat_topk_plain(q, db, count, k, **kwargs)
         err, keys_ok, ids_ok = compare(keys, ids, pkeys, pids, metric)
         kernel_ms = cuda_ms(
@@ -248,6 +293,120 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
     return headline, errs
 
 
+def unit_(t):
+    """Normalize the rows of t in place (last axis)."""
+    import torch
+    return t.div_(torch.linalg.vector_norm(t, dim=-1, keepdim=True))
+
+
+def ivf_bound(fills, sel, row_bytes: int, d: int, k: int,
+              dtype: str) -> tuple[float, str]:
+    """Least time for an IVF probe: bytes (the live rows of the distinct
+    probed buckets read once, sel, fills, queries, outputs) over the
+    memory rate vs 2*d ops per live (query, row) pair over the peak rate
+    of the bucket type."""
+    import torch
+    f = fills.long()
+    distinct = torch.unique(sel)
+    rows_read = int(f[distinct].sum())
+    pairs = int(f[sel.long()].sum())
+    q_n = sel.shape[0]
+    nbytes = (rows_read * row_bytes + sel.numel() * 4 + distinct.numel() * 4
+              + q_n * d * 4 + q_n * k * 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * d * pairs / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ivf_yardstick(q, buckets, fills, sel, k: int):
+    """index_select + bmm + topk over the probed buckets: the same top-k
+    keys as the kernel, as a composition of torch calls (a yardstick of
+    speed only)."""
+    import torch
+    q_n, n_probe = sel.shape
+    nb, bc, d = buckets.shape
+    rows = buckets.index_select(0, sel.reshape(-1).long()).view(
+        q_n, n_probe * bc, d)
+    keys = torch.bmm(rows, q.to(buckets.dtype)[:, :, None])[:, :, 0].float()
+    live = (torch.arange(bc, device=q.device)[None, None, :]
+            < fills[sel.long()][:, :, None]).view(q_n, -1)
+    keys = torch.where(live, keys, torch.full_like(keys, float("-inf")))
+    return torch.topk(keys, min(k, keys.shape[1]), dim=1)
+
+
+def hold_ivf(q, buckets, ids, fills, sel, k: int, what: dict,
+             timed: bool = False) -> dict:
+    """The IVF kernel against its plain version on these inputs; with
+    ``timed``, kernel, plain and yardstick times and the bound."""
+    from tpu_vector_db_torch.ops import ivf_scan
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    args = (q, buckets, ids, fills, sel, k)
+    before = LAUNCHES["ivf_kernel"]
+    keys, got_ids = ivf_scan.ivf_probe_topk(*args)
+    launches = LAUNCHES["ivf_kernel"] - before
+    pkeys, pids = ivf_scan.ivf_probe_topk_plain(q, buckets, ids, sel, k,
+                                                bucket_fills=fills)
+    err, keys_ok, ids_ok = compare(keys, got_ids, pkeys, pids, "cosine")
+    out = {"kernel": "ivf_kernel", **what, "Q": q.shape[0],
+           "nprobe": sel.shape[1], "k": k, "NB": buckets.shape[0],
+           "Bc": buckets.shape[1], "d": buckets.shape[2],
+           "dtype": str(buckets.dtype).replace("torch.", ""),
+           "max_abs_err": err, "key_tol": KEY_TOL, "keys_ok": keys_ok,
+           "ids_ok": ids_ok, "launches": launches}
+    if timed:
+        dtype = str(buckets.dtype).replace("torch.", "")
+        out["kernel_ms"] = cuda_ms(lambda: ivf_scan.ivf_probe_topk(*args),
+                                   10)
+        out["plain_ms"] = cuda_ms(lambda: ivf_scan.ivf_probe_topk_plain(
+            q, buckets, ids, sel, k, bucket_fills=fills), 2)
+        out["yardstick_ms"] = cuda_ms(
+            lambda: ivf_yardstick(q, buckets, fills, sel, k), 3)
+        out["yardstick"] = IVF_YARDSTICK
+        out["bound_ms"], out["bound_by"] = ivf_bound(
+            fills, sel, buckets.shape[2] * buckets.element_size(),
+            buckets.shape[2], k, dtype)
+    emit(out)
+    check(launches == 1, f"ivf_kernel launched {launches} times in one call")
+    check(keys_ok and ids_ok, f"ivf_kernel disagrees with its plain version "
+          f"({what}, Q={q.shape[0]} nprobe={sel.shape[1]} k={k}, key error "
+          f"{err})")
+    return out
+
+
+def phase_ivf_kernels(seed: int) -> float:
+    """Every IVF kernel case on 2048 buckets of 1024 x 768 unit rows,
+    partly filled. Returns the largest |key diff|."""
+    import torch
+    nb, bc, d = 2048, 1024, 768
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    buckets = unit_(torch.randn((nb, bc, d), generator=g, device=dev))
+    fills = torch.randint(bc // 2, bc + 1, (nb,), generator=g, device=dev,
+                          dtype=torch.int32)
+    fills[:8] = bc                       # some full buckets
+    slot = torch.arange(bc, device=dev)
+    ids = torch.where(slot[None, :] < fills[:, None],
+                      torch.arange(nb * bc, device=dev,
+                                   dtype=torch.int32).view(nb, bc), -1)
+    by_dtype = {"float32": buckets, "bfloat16": buckets.to(torch.bfloat16)}
+    queries = unit_(torch.randn((64, d), generator=g, device=dev))
+    order = torch.rand((64, nb), generator=g, device=dev).argsort(dim=1)
+    cases = [(dtype, q_n, n_probe, k)
+             for dtype in ("float32", "bfloat16") for q_n in (1, 8, 64)
+             for n_probe in (32, 64) for k in (10, 32)]
+    cases += [("float32", 1, nb, 10), ("bfloat16", 1, nb, 32)]  # full probe
+    err = 0.0
+    for dtype, q_n, n_probe, k in cases:
+        sel = order[:q_n, :n_probe].to(torch.int32).contiguous()
+        out = hold_ivf(queries[:q_n], by_dtype[dtype], ids, fills, sel, k,
+                       {"phase": "ivf_kernel_case"}, timed=True)
+        err = max(err, out["max_abs_err"])
+    del buckets, by_dtype, ids
+    free_card()
+    return err
+
+
 # --------------------------------------------------------------- phase 3
 
 @contextlib.contextmanager
@@ -255,11 +414,12 @@ def counting(path: str, expect: tuple[str, ...], counts: dict):
     """Launch counts set to 0 just before a path and read just after;
     every kernel in ``expect`` must have launched in it."""
     import torch
-    from tpu_vector_db_torch.ops import cuda_scan
-    cuda_scan.reset_launch_counts()
+    from tpu_vector_db_torch.ops.launches import (LAUNCHES,
+                                                  reset_launch_counts)
+    reset_launch_counts()
     yield
     torch.cuda.synchronize()
-    counts[path] = dict(cuda_scan.LAUNCHES)
+    counts[path] = dict(LAUNCHES)
     emit({"phase": "launches", "path": path, **counts[path]})
     for name in expect:
         check(counts[path][name] > 0,
@@ -377,14 +537,23 @@ def tie_aware_recall(results, keys, gt_vals, k: int) -> float:
     return hits / (len(results) * k)
 
 
-def counted(fn, expect: str):
-    """Run fn and require that kernel ``expect`` was launched by it."""
-    from tpu_vector_db_torch.ops import cuda_scan
-    before = cuda_scan.LAUNCHES[expect]
+def counted(fn, expect: str, forbid: tuple[str, ...] = ()):
+    """Run fn and require that kernel ``expect`` was launched by it and
+    no kernel in ``forbid`` was."""
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    before = dict(LAUNCHES)
     out = fn()
-    check(cuda_scan.LAUNCHES[expect] > before,
+    check(LAUNCHES[expect] > before[expect],
           f"{expect} was not launched by this case")
+    for name in forbid:
+        check(LAUNCHES[name] == before[name],
+              f"{name} was launched by a case routed to {expect}")
     return out
+
+
+# an IVF-routed call launches the IVF kernel and no flat scan: an ANN
+# failure that fell back to the exact scan would fail the run
+IVF_ONLY = ("scan_kernel", "scan_kernel_bigk")
 
 
 def free_card() -> None:
@@ -416,6 +585,10 @@ def path_main(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
         r = counted(lambda: timed_queries(store, qs[:1], 100, 10),
                     "scan_kernel_bigk")
         emit({"phase": "main", "case": "768D f32 top-100 b1", **r})
+        # past the TPU big-k kernel's k = 1024
+        r = counted(lambda: timed_queries(store, qs[:1], 2000, 5),
+                    "scan_kernel_bigk")
+        emit({"phase": "main", "case": "768D f32 top-2000 b1", **r})
         for q_n, reps in ((1, 20), (64, 5)):
             r = counted(lambda: device_share(store, qs[:q_n], 10, reps),
                         "scan_kernel")
@@ -449,7 +622,7 @@ def path_main(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
         emit({"phase": "main", "case": "delete then query", "deleted": top,
               "ok": True})
     for q_n, k, flt in ((1, 10, None), (64, 10, None), (1, 100, None),
-                        (1, 10, {"cat": 3})):
+                        (1, 2000, None), (1, 10, {"cat": 3})):
         hold_store(store, "main", qs[:q_n], k, errs, flt)
     del store, rows, meta
     free_card()
@@ -506,7 +679,16 @@ def path_config4(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
         check(recall == 1.0, f"config #4 rerank recall@10 = {recall}")
         emit({"phase": "main", "case": "config4 rerank top-10 b1",
               "add_seconds": add_s, "recall@10_4q": recall, **r})
-    for q_n, k in ((1, 10), (64, 10), (1, 40)):
+        # rerank top-300: a scan of 1200 rows, past the TPU kernel's 1024
+        r = counted(lambda: timed_queries(store, qs[:1], 300, 5,
+                                          rerank=True), "scan_kernel_bigk")
+        res = store.batch_query(qs[:2], k=300, rerank=True)
+        (gt_vals, _), keys = exact_topk(rows, qs[:2], 300, "cosine")
+        recall = tie_aware_recall(res, keys, gt_vals, 300)
+        check(recall == 1.0, f"config #4 rerank recall@300 = {recall}")
+        emit({"phase": "main", "case": "config4 rerank top-300 b1",
+              "recall@300_2q": recall, **r})
+    for q_n, k in ((1, 10), (64, 10), (1, 40), (1, 1200)):
         hold_store(store, "config4", qs[:q_n], k, errs)
     del store, rows, keys
     free_card()
@@ -549,6 +731,206 @@ def path_config1(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
     free_card()
 
 
+# BASELINE config #3's regime, generated as bench.py's _clustered_db does:
+# unit rows around 4096 normal centres with 0.2 normal noise per component
+IVF_CENTERS, IVF_SPREAD = 4096, 0.2
+
+
+def clustered_rows(g, centres, n: int):
+    import torch
+    pick = torch.randint(0, centres.shape[0], (n,), generator=g,
+                         device="cuda")
+    x = centres[pick] + IVF_SPREAD * torch.randn(
+        (n, centres.shape[1]), generator=g, device="cuda")
+    return unit_(x)
+
+
+def hold_index(store, path: str, queries: np.ndarray, k: int, errs: dict,
+               timed: bool = False, label: str = "built") -> dict:
+    """The IVF kernel against its plain version on the store's own index:
+    its buckets, ids and fills, and the buckets its centroids select for
+    these queries at the store's nprobe. ``label`` names the store
+    ("built" here, or "reopened" from its files)."""
+    from tpu_vector_db_torch.index.ivf import _select_buckets
+    ann = store._ann
+    dev = ann._dev
+    nprobe = min(store.config.ann_params.get("nprobe") or ann.nprobe,
+                 dev["ids"].shape[0])
+    q = store._prepare_queries(queries)
+    sel = _select_buckets(q, dev["centroids"], dev["bucket_cluster"], nprobe,
+                          store.metric, dev["c_sqnorms"])
+    out = hold_ivf(q, dev["buckets"], dev["ids"], dev["fills"], sel, k,
+                   {"phase": "hold", "path": path, "store": label},
+                   timed=timed)
+    errs["ivf_kernel"] = max(errs.get("ivf_kernel", 0.0), out["max_abs_err"])
+    return out
+
+
+def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
+    """BASELINE config #3's regime: 1M x 768 f32 cosine clustered rows in
+    the default store with enable_ann=True. Returns the IVF kernel's
+    headline timings (batch 1, top-10, on this index)."""
+    import torch
+    from tpu_vector_db_torch import create_vector_store
+    d, batch = 768, 125_000
+    centres = torch.randn((IVF_CENTERS, d), generator=g, device="cuda")
+    qs = clustered_rows(g, centres, 64).cpu().numpy()
+    with counting("ivf", ("ivf_kernel",), counts):
+        store = create_vector_store(tmp / "ivf", dimension=d, device="cuda",
+                                    persist_mode="lazy", enable_ann=True)
+        # the first batch (>= 100K rows) builds the index; the others
+        # extend it, spilling into new buckets
+        add_s = []
+        for start in range(0, N, batch):
+            rows = clustered_rows(g, centres, min(batch, N - start)).cpu()
+            t0 = time.perf_counter()
+            store.add_vectors(rows.numpy())
+            add_s.append(time.perf_counter() - t0)
+        check(store.get_stats()["index_type"] == "ivf",
+              "the 1M store did not resolve to IVF")
+        inc = store._ann.get_stats()
+        emit({"phase": "ivf", "case": f"add {N}x768 f32 in {len(add_s)} "
+              "batches", "first_add_with_build_seconds": add_s[0],
+              "later_adds_seconds": sum(add_s[1:]), "add_seconds": add_s,
+              "clusters": inc["clusters"], "buckets": inc["buckets"],
+              "bucket_rows": inc["bucket_rows"],
+              "nprobe": store._ann.nprobe,
+              "ann_recall_estimate": store.get_stats()["ann_recall_estimate"]})
+        t0 = time.perf_counter()
+        store.optimize()
+        opt_s = time.perf_counter() - t0
+        ann = store._ann
+        st = ann.get_stats()
+        nb = st["buckets"]
+        emit({"phase": "ivf", "case": "optimize (full rebuild)",
+              "seconds": opt_s, "index_build_seconds": ann.build_time_s,
+              "clusters": st["clusters"], "buckets": nb,
+              "bucket_rows": st["bucket_rows"],
+              "fill_ratio": st["fill_ratio"], "nprobe": ann.nprobe,
+              "ann_recall_estimate": store.get_stats()["ann_recall_estimate"],
+              "bucket_copy_mb": st["memory_mb"]})
+        for q_n, reps in ((1, 20), (8, 10)):
+            r = counted(lambda: timed_queries(store, qs[:q_n], 10, reps),
+                        "ivf_kernel", IVF_ONLY)
+            emit({"phase": "ivf", "case": f"768D IVF top-10 b{q_n}",
+                  "nprobe": ann.nprobe, **r})
+        r = counted(lambda: device_share(store, qs[:1], 10, 20),
+                    "ivf_kernel", IVF_ONLY)
+        emit({"phase": "ivf", "case": "768D IVF top-10 b1 profiled", **r})
+        # recall@10 of 64 queries, in batches of 8 (auto mode sends
+        # batches of 32 and more to the exact scan)
+        res = []
+        for i in range(0, 64, 8):
+            res += counted(lambda: store.batch_query(qs[i:i + 8], k=10),
+                           "ivf_kernel", IVF_ONLY)
+        (gt_vals, _), keys = exact_topk(store._db[:N], qs, 10, "cosine")
+        recall = tie_aware_recall(res, keys, gt_vals, 10)
+        emit({"phase": "ivf", "case": "recall@10 64q", "recall": recall,
+              "nprobe": ann.nprobe})
+        check(recall >= 0.95, f"IVF recall@10 = {recall} < 0.95")
+        del keys
+        # a full probe returns the flat scan's top-10
+        prepared = store._prepare_queries(qs[:8])
+        ids, keys = counted(lambda: ann.search(
+            prepared, store._db, store._count, k=10, nprobe=nb),
+            "ivf_kernel", IVF_ONLY)
+        fkeys, fids = store._flat_topk(qs[:8], 10, None)
+        err, keys_ok, ids_ok = compare(
+            torch.from_numpy(keys), torch.from_numpy(ids),
+            torch.from_numpy(fkeys), torch.from_numpy(fids), "cosine")
+        emit({"phase": "ivf", "case": "full probe vs flat top-10 8q",
+              "nprobe": nb, "max_abs_err": err, "keys_ok": keys_ok,
+              "ids_ok": ids_ok})
+        check(keys_ok and ids_ok, "a full IVF probe differs from the flat "
+              f"scan (key error {err})")
+        # batch 64 (auto mode) and top-100 route to the exact scan
+        counted(lambda: store.batch_query(qs, k=10), "scan_kernel",
+                ("ivf_kernel",))
+        counted(lambda: store.batch_query(qs[:1], k=100), "scan_kernel_bigk",
+                ("ivf_kernel",))
+        emit({"phase": "ivf", "case": "routing", "b64_top10": "scan_kernel",
+              "b1_top100": "scan_kernel_bigk", "ok": True})
+        # auto mode's batch crossover (32) comes from the JAX store: time
+        # batches 32 and 64 both ways on this store, the exact scan (auto)
+        # and the IVF kernel (index_type='ivf', which has no crossover)
+        p = store.config.ann_params
+        for q_n in (32, 64):
+            exact = counted(lambda: timed_queries(store, qs[:q_n], 10, 10),
+                            "scan_kernel", ("ivf_kernel",))
+            p["index_type"] = "ivf"
+            try:
+                ivf = counted(lambda: timed_queries(store, qs[:q_n], 10, 10),
+                              "ivf_kernel", IVF_ONLY)
+            finally:
+                p["index_type"] = "auto"
+            emit({"phase": "ivf", "case": f"crossover top-10 b{q_n}",
+                  "exact_p50_ms": exact["p50_ms"],
+                  "ivf_p50_ms": ivf["p50_ms"], "exact_qps": exact["qps"],
+                  "ivf_qps": ivf["qps"], "nprobe": ann.nprobe})
+    headline = None
+    for q_n in (1, 8, 64):
+        out = hold_index(store, "ivf", qs[:q_n], 10, errs, timed=q_n == 1)
+        if q_n == 1:
+            headline = dict(ms=out["kernel_ms"], plain_ms=out["plain_ms"],
+                            bound_ms=out["bound_ms"],
+                            bound_by=out["bound_by"], library_ms=None,
+                            yardstick_ms=out["yardstick_ms"],
+                            yardstick=IVF_YARDSTICK)
+    del store, ann
+    free_card()
+    return headline
+
+
+def path_ivf_small(g, tmp: Path, counts: dict, errs: dict) -> None:
+    """200K x 384 bf16 cosine with enable_ann=True: flush, reopen, and the
+    index served from its ann_ivf.npz without a rebuild."""
+    import torch
+    from tpu_vector_db_torch import TorchVectorStore, create_vector_store
+    d, n = 384, 200_000
+    centres = torch.randn((IVF_CENTERS, d), generator=g, device="cuda")
+    qs = clustered_rows(g, centres, 8).cpu().numpy()
+    rows = clustered_rows(g, centres, n).cpu().numpy()
+    with counting("ivf_small", ("ivf_kernel",), counts):
+        store = create_vector_store(tmp / "ivf_small", dimension=d,
+                                    device="cuda", storage_dtype="bfloat16",
+                                    persist_mode="lazy", enable_ann=True)
+        t0 = time.perf_counter()
+        store.add_vectors(rows[: n // 2])        # builds the index
+        store.add_vectors(rows[n // 2:])         # extends it
+        add_s = time.perf_counter() - t0
+        check(store.get_stats()["index_type"] == "ivf"
+              and store._ann.size == n, "the bf16 store has no full index")
+        before = counted(lambda: store.batch_query(qs, k=10), "ivf_kernel",
+                         IVF_ONLY)
+        r = counted(lambda: timed_queries(store, qs[:1], 10, 20),
+                    "ivf_kernel", IVF_ONLY)
+        t0 = time.perf_counter()
+        store.flush()
+        flush_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reopened = TorchVectorStore(tmp / "ivf_small", device="cuda")
+        reopen_s = time.perf_counter() - t0
+        served = (reopened._ann is not None and not reopened._ann_stale
+                  and reopened._ann.size == n
+                  and reopened._ann.build_time_s == 0.0)
+        check(served, "the reopened store rebuilt its index instead of "
+              "serving ann_ivf.npz")
+        after = counted(lambda: reopened.batch_query(qs, k=10), "ivf_kernel",
+                        IVF_ONLY)
+        check([a[0] for a in after] == [b[0] for b in before],
+              "the reopened store answers differently")
+        emit({"phase": "ivf_small", "case": f"{n}x{d} bf16 IVF top-10 b1",
+              **r, "add_seconds": add_s, "flush_seconds": flush_s,
+              "reopen_seconds": reopen_s, "sidecar_served": served,
+              "same_answers": True, "nprobe": reopened._ann.nprobe,
+              "buckets": reopened._ann.get_stats()["buckets"]})
+    for s_, q_n, label in ((store, 1, "built"), (store, 8, "built"),
+                           (reopened, 8, "reopened")):
+        hold_index(s_, "ivf_small", qs[:q_n], 10, errs, label=label)
+    del store, reopened
+    free_card()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -575,17 +957,22 @@ def main() -> int:
     try:
         phase_build()
         headline, errs = phase_kernels(768, args.seed)
+        errs["ivf_kernel"] = phase_ivf_kernels(args.seed)
         shutil.rmtree(tmp, ignore_errors=True)
         g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         path_main(g, args.seed, tmp, counts, errs)
         path_config2(g, tmp, counts, errs)
         path_config4(g, args.seed, tmp, counts, errs)
         path_config1(g, args.seed, tmp, counts, errs)
-        kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+        headline["ivf_kernel"] = path_ivf(g, tmp, counts, errs)
+        path_ivf_small(g, tmp, counts, errs)
+        kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name],
-                    "launches": counts["main"][name],
+                    "launches": counts[HEADLINE_PATH[name]][name],
+                    "launches_path": HEADLINE_PATH[name],
                     "max_abs_err": errs[name], **headline[name]}
-                   for name in ("scan_kernel", "scan_kernel_bigk")]
+                   for name in ("scan_kernel", "scan_kernel_bigk",
+                                "ivf_kernel")]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"kernels": kernels})

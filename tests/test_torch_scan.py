@@ -23,6 +23,7 @@ from tpu_vector_db.ops.quant4 import pack_int4 as jax_pack_int4
 
 from tpu_vector_db_torch.ops import cuda_scan
 from tpu_vector_db_torch.ops.cuda_scan import flat_topk, flat_topk_plain
+from tpu_vector_db_torch.ops.launches import LAUNCHES
 from tpu_vector_db_torch.ops.quant4 import pack_int4, unpack_int4
 
 torch.set_num_threads(1)
@@ -239,11 +240,11 @@ def test_int4_plain_keys_are_dequantized_scores():
 
 def test_wrapper_routes_cpu_tensors_to_plain():
     x, q, _, _ = _inputs(7, 2048, 64, 4, "cosine", "float32")
-    before = dict(cuda_scan.LAUNCHES)
+    before = dict(LAUNCHES)
     a = flat_topk(torch.from_numpy(q), torch.from_numpy(x), 2000, 10)
     b = flat_topk_plain(torch.from_numpy(q), torch.from_numpy(x), 2000, 10)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert cuda_scan.LAUNCHES == before   # no kernel launched on the CPU
+    assert LAUNCHES == before   # no kernel launched on the CPU
 
 
 @pytest.mark.parametrize("block_rows", [100, 512, 4096])
@@ -259,8 +260,8 @@ def test_plain_is_independent_of_block(block_rows):
 
 def test_contract_errors():
     q = torch.zeros((1, 128))
-    with pytest.raises(ValueError, match="1024"):
-        flat_topk(q, torch.zeros((512, 128)), 10, 2000)
+    with pytest.raises(ValueError, match="k >= 1"):
+        flat_topk(q, torch.zeros((512, 128)), 10, 0)
     with pytest.raises(ValueError, match="256"):
         flat_topk(q, torch.zeros((512, 64), dtype=torch.uint8), 10, 5,
                   db_scales=torch.ones(512))

@@ -26,7 +26,7 @@ from tpu_vector_db.store.vector_store import TPUVectorStore
 
 from tpu_vector_db_torch import (TorchVectorStore, VectorStoreConfig,
                                  create_vector_store)
-from tpu_vector_db_torch.ops import cuda_scan
+from tpu_vector_db_torch.ops.launches import LAUNCHES
 
 torch.set_num_threads(1)
 
@@ -120,22 +120,27 @@ def test_bf16_rerank_parity(tmp_path, metric):
 
 
 @pytest.mark.parametrize("dtype,k,rerank", [("float32", 1025, False),
+                                            ("float32", 2000, False),
                                             ("bfloat16", 300, True)])
 def test_scan_width_limit(tmp_path, dtype, k, rerank):
-    """The exact scan returns at most 1024 rows per query (k, or k x the
-    rerank oversample of 4): past it the torch store raises where the JAX
-    store serves the query with its XLA scan; at the limit both agree."""
+    """The exact scan has no width limit: past the TPU big-k kernel's 1024
+    rows per query (k, or k x the rerank oversample of 4) the JAX store
+    uses its XLA scan and the torch store its big-k kernel (on the CPU, the
+    kernel's plain version); both give the same results."""
     js, ts = _pair(tmp_path, storage_dtype=dtype)
     x = _rows(11)
     for s in (js, ts):
-        s.add_vectors(x)
-    q = x[:1] + 0.1 * _rows(12, 1)
-    assert len(js.batch_query(q, k=k, rerank=rerank)[0][0]) == k
-    with pytest.raises(ValueError, match="at most 1024"):
-        ts.batch_query(q, k=k, rerank=rerank)
-    k_max = cuda_scan.MAX_K // 4 if rerank else cuda_scan.MAX_K
-    assert_results_match(ts.batch_query(q, k=k_max, rerank=rerank),
-                         js.batch_query(q, k=k_max, rerank=rerank), 1e-4)
+        s.add_vectors(x, _meta(N))
+    q = x[:2] + 0.1 * _rows(12, 2)
+    want = js.batch_query(q, k=k, rerank=rerank)
+    got = ts.batch_query(q, k=k, rerank=rerank)
+    assert [len(r[0]) for r in got] == [k, k]
+    if rerank:   # both re-score the same candidates in f32 on the host
+        for (gi, gs, _), (wi, ws, _) in zip(got, want):
+            assert gi == wi
+            np.testing.assert_allclose(gs, ws, rtol=1e-6)
+    else:
+        assert_results_match(got, want, 1e-4)
 
 
 def test_query_contract(tmp_path):
@@ -225,9 +230,9 @@ def test_no_kernel_launch_on_cpu(tmp_path):
     s = create_vector_store(tmp_path / "s", dimension=D, device="cpu",
                             persist_mode="off")
     s.add_vectors(_rows(9, 100))
-    before = dict(cuda_scan.LAUNCHES)
+    before = dict(LAUNCHES)
     s.batch_query(_rows(10, 2), k=50)
-    assert cuda_scan.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 def test_device_defaults_to_cuda(tmp_path):
@@ -242,16 +247,27 @@ def test_device_defaults_to_cuda(tmp_path):
 
 
 def test_enable_ann_is_not_served_by_flat(tmp_path):
-    with pytest.raises(NotImplementedError, match="IVF"):
+    """enable_ann=True builds the IVF index; only the beam graph, which
+    is not ported yet, still raises."""
+    with pytest.raises(NotImplementedError, match="beam_graph"):
         create_vector_store(tmp_path / "s", dimension=D, device="cpu",
-                            enable_ann=True)
+                            enable_ann=True,
+                            ann_params={"index_type": "beam_graph"})
+    s = create_vector_store(tmp_path / "t", dimension=D, device="cpu",
+                            enable_ann=True, persist_mode="off",
+                            ann_params={"auto_flat_rows": 1000})
+    s.add_vectors(_rows(13, 1500))
+    assert s.get_stats()["index_type"] == "ivf"
 
 
 def test_import_pulls_in_no_jax():
     """Importing the port loads neither jax nor the JAX package."""
     code = ("import sys, tpu_vector_db_torch, tpu_vector_db_torch.ops."
             "cuda_scan, tpu_vector_db_torch.ops.scan, "
-            "tpu_vector_db_torch.ops._build\n"
+            "tpu_vector_db_torch.ops._build, tpu_vector_db_torch.ops."
+            "kmeans, tpu_vector_db_torch.ops.ivf_scan, "
+            "tpu_vector_db_torch.ops.launches, "
+            "tpu_vector_db_torch.index.ivf\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpu_vector_db' or "
             "m.startswith('tpu_vector_db.')]\n"

@@ -5,10 +5,13 @@ NVIDIA H100. It imports torch, numpy and the standard library only, and
 sets up no runtime at import. Modules mirror the JAX package's layout:
 
     ops/     distance, top-k, int4/int8 quantization, the plain blockwise
-             scan, and the exact flat top-k scan (cuda_scan.py, kernels in
-             csrc/flat_topk.cu, built with nvcc at first use)
+             scan, the exact flat top-k scan (cuda_scan.py, kernels in
+             csrc/flat_topk.cu), k-means (kmeans.py) and the IVF probe
+             scans (ivf_scan.py, kernel in csrc/ivf_topk.cu); kernels are
+             built with nvcc at first use
+    index/   IVFIndex: k-means buckets, appends with spills, ann_ivf.npz
     store/   config, persistence (the JAX package's on-disk format) and
-             TorchVectorStore
+             TorchVectorStore, with the JAX store's ANN routing
     utils/   atomic writes, file lock, readers-writer lock, validation
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
@@ -17,6 +20,7 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 
 __version__ = "0.1.0"
 
+from tpu_vector_db_torch.index.ivf import IVFIndex  # noqa: F401
 from tpu_vector_db_torch.store.config import VectorStoreConfig  # noqa: F401
 from tpu_vector_db_torch.store.vector_store import (  # noqa: F401
     TorchVectorStore,

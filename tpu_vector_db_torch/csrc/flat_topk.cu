@@ -3,8 +3,10 @@
 //
 // Replaces the two TPU kernels behind one Pallas call site,
 // tpu_vector_db/ops/pallas_scan.py:
-//   _scan_kernel       (k <= 32)        -> scan_small_k + merge_topk_kernel
-//   _scan_kernel_bigk  (32 < k <= 1024) -> scan_big_k   + merge_topk_kernel
+//   _scan_kernel       (k <= 32) -> scan_small_k + merge_topk_kernel
+//   _scan_kernel_bigk  (k > 32)  -> scan_big_k   + merge_topk_kernel
+// The TPU big-k kernel stops at k = 1024; this one takes any k, so the
+// store serves every k the JAX store serves (its XLA scan takes k > 1024).
 //
 // What bounds it on this card. At batch 1 every stored byte is read once
 // for 2*d flops per row: far below the card's ratio of flops to bytes, so
@@ -30,10 +32,16 @@
 //    almost no row costs more than its dot product.
 //  * k <= 32: each warp keeps one sorted list per query in registers (lane
 //    j holds the j-th best), updated by a ballot + shuffle insert.
-//  * 32 < k <= 1024: each query has a shared-memory region of 2*KB slots:
-//    the sorted best KB and a candidate area that rows above the threshold
-//    append to. When the area may overflow, a bitonic sort of the region
-//    restores the sorted best and raises the threshold.
+//  * k > 32: each query has a region of 2*KB slots, KB = next_pow2(k) (at
+//    least 1024): the sorted best KB and a candidate area that rows above
+//    the threshold append to. When the area may overflow, a bitonic sort of
+//    the region restores the sorted best and raises the threshold. Up to
+//    KB = 8192 (128 KB a query) the region is in shared memory; past it, in
+//    device-memory scratch the wrapper allocates, and the wrapper gives
+//    each split at least 4*k rows so that few candidates reach the merge.
+//  * The merge keeps the sorted best next_pow2(k) plus an equal candidate
+//    area (at least 4096 slots), in shared memory up to 16384 slots and in
+//    device-memory scratch past that (topk_common.cuh).
 //  * Order is key descending, then id ascending, everywhere. The TPU
 //    kernel's first-occurrence rule gives exactly this because its ids rise
 //    in scan order; with the explicit rule the result does not depend on
@@ -43,127 +51,14 @@
 // after its launches (or cudaErrorInvalidValue for arguments it refuses).
 // It allocates nothing: the caller passes outputs and candidate scratch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_common.cuh"
 
-#define WARPS 8
-#define THREADS (WARPS * 32)
-#define MAXC 8                 // 16-byte chunks in flight per lane
 #define CHUNK_ROWS 256         // big-k: rows between threshold checks
 #define MIN_KB 1024            // big-k: least width of the sorted best
-#define MERGE_THREADS 512
-#define MERGE_LEN 4096
-#define MAX_SMEM 232448
-#define FULL 0xffffffffu
-
-enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I4 = 3 };
-
-__device__ __forceinline__ bool before(float ka, int ia, float kb, int ib) {
-  return ka > kb || (ka == kb && ia < ib);
-}
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 q, float a, float b, float c,
-                                      float d, float acc) {
-  acc = fmaf(q.x, a, acc);
-  acc = fmaf(q.y, b, acc);
-  acc = fmaf(q.z, c, acc);
-  return fmaf(q.w, d, acc);
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ float i8_at(uint32_t w, int j) {
-  return (float)(int8_t)((w >> (8 * j)) & 0xffu);
-}
-
-// Accumulate one 16-byte chunk `v` (chunk index c of the row) against the
-// QT queries in shared memory.
-template <int DT, int QT>
-__device__ __forceinline__ void chunk_dot(uint4 v, int c, const float* qs,
-                                          int d_pad, float (&acc)[QT]) {
-  if (DT == DT_F32) {
-    const float x0 = __uint_as_float(v.x), x1 = __uint_as_float(v.y);
-    const float x2 = __uint_as_float(v.z), x3 = __uint_as_float(v.w);
-#pragma unroll
-    for (int t = 0; t < QT; t++)
-      acc[t] = dot4(lds4(qs + t * d_pad + c * 4), x0, x1, x2, x3, acc[t]);
-  } else if (DT == DT_BF16) {
-#pragma unroll
-    for (int t = 0; t < QT; t++) {
-      const float* qp = qs + t * d_pad + c * 8;
-      float a = dot4(lds4(qp), bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y), acc[t]);
-      acc[t] = dot4(lds4(qp + 4), bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w), a);
-    }
-  } else if (DT == DT_I8) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int t = 0; t < QT; t++) {
-      const float* qp = qs + t * d_pad + c * 16;
-      float a = acc[t];
-#pragma unroll
-      for (int g = 0; g < 4; g++)
-        a = dot4(lds4(qp + 4 * g), i8_at(w[g], 0), i8_at(w[g], 1),
-                 i8_at(w[g], 2), i8_at(w[g], 3), a);
-      acc[t] = a;
-    }
-  } else {  // int4: byte j = (component j in the low nibble, j + d/2 high)
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    const int half = d_pad / 2;
-#pragma unroll
-    for (int t = 0; t < QT; t++) {
-      const float* lo = qs + t * d_pad + c * 16;
-      const float* hi = lo + half;
-      float a = acc[t];
-#pragma unroll
-      for (int g = 0; g < 4; g++) {
-        const uint32_t x = w[g];
-        a = dot4(lds4(lo + 4 * g), (float)(x & 15u), (float)((x >> 8) & 15u),
-                 (float)((x >> 16) & 15u), (float)((x >> 24) & 15u), a);
-        a = dot4(lds4(hi + 4 * g), (float)((x >> 4) & 15u), (float)((x >> 12) & 15u),
-                 (float)((x >> 20) & 15u), (float)(x >> 28), a);
-      }
-      acc[t] = a;
-    }
-  }
-}
-
-// The QT keys of row r, identical in every lane of the warp.
-template <int DT, int QT>
-__device__ __forceinline__ void row_keys(const uint4* __restrict__ row, int n_chunks,
-                                         const float* qs, const float* qsum8,
-                                         int d_pad, int lane, float scale,
-                                         float sqnorm, int euclid, float (&acc)[QT]) {
-#pragma unroll
-  for (int t = 0; t < QT; t++) acc[t] = 0.f;
-  for (int c0 = 0; c0 < n_chunks; c0 += 32 * MAXC) {
-    uint4 v[MAXC];
-#pragma unroll
-    for (int u = 0; u < MAXC; u++) {
-      const int c = c0 + u * 32 + lane;
-      if (c < n_chunks) v[u] = __ldg(row + c);
-    }
-#pragma unroll
-    for (int u = 0; u < MAXC; u++) {
-      const int c = c0 + u * 32 + lane;
-      if (c < n_chunks) chunk_dot<DT, QT>(v[u], c, qs, d_pad, acc);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < QT; t++) {
-    float s = acc[t];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-    if (DT == DT_I4) s = (s - qsum8[t]) * scale;  // offset 8 folded out
-    if (euclid) s = 2.f * s - sqnorm;             // rank-equivalent L2 key
-    acc[t] = s;
-  }
-}
+// big-k: widest sorted best kept in shared memory (2 x 8192 slots of 8
+// bytes = 128 KB a query); past it each block's regions are device-memory
+// scratch that the caller passes
+#define SMEM_MAX_KB 8192
 
 struct ScanArgs {
   const float* q;
@@ -176,6 +71,8 @@ struct ScanArgs {
   int euclid, k, kb, rows_per_split;
   float* cand_keys;
   int* cand_ids;
+  float* scratch_keys;  // big-k regions in device memory, or null
+  int* scratch_ids;
 };
 
 // Queries of this block's tile into shared memory (zeros past Q), and for
@@ -252,33 +149,12 @@ __global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
   }
 }
 
-// Bitonic sort, key descending then id ascending, of n_regions regions of
-// length L (a power of two) laid out back to back. All threads of the
-// block take part; ends synchronized.
-__device__ void bitonic_sort(float* K, int* I, int n_regions, int L) {
-  const int half = L / 2;
-  for (int size = 2; size <= L; size <<= 1) {
-    for (int stride = size / 2; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < n_regions * half; i += blockDim.x) {
-        const int t = i / half, j = i - t * half;
-        const int lo = (j / stride) * 2 * stride + (j % stride);
-        const int a = t * L + lo, b = a + stride;
-        const bool desc = (lo & size) == 0;
-        const float ka = K[a], kb = K[b];
-        const int ia = I[a], ib = I[b];
-        if (desc ? before(kb, ib, ka, ia) : before(ka, ia, kb, ib)) {
-          K[a] = kb; K[b] = ka; I[a] = ib; I[b] = ia;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// 32 < k <= 1024: per query a region of 2*KB (key, id) slots in shared
-// memory, KB = max(next_pow2(k), MIN_KB): [0, KB) the sorted best,
-// [KB, 2*KB) candidates above the threshold, sorted in once more than
-// KB - CHUNK_ROWS have collected. Candidates out: (Q, splits, k).
+// k > 32: per query a region of L = 2*KB (key, id) slots, KB =
+// max(next_pow2(k), MIN_KB): [0, KB) the sorted best, [KB, 2*KB)
+// candidates above the threshold, sorted in once more than KB - CHUNK_ROWS
+// have collected. The regions live in shared memory up to KB =
+// SMEM_MAX_KB, else in the caller's device-memory scratch, QT regions per
+// block. Candidates out: (Q, splits, k).
 template <int DT, int QT>
 __global__ void __launch_bounds__(THREADS) scan_big_k(ScanArgs a) {
   extern __shared__ float smem[];
@@ -287,10 +163,18 @@ __global__ void __launch_bounds__(THREADS) scan_big_k(ScanArgs a) {
   float* qsum8 = qs + QT * a.d_pad;
   float* thr = qsum8 + QT;
   int* cnt = reinterpret_cast<int*>(thr + QT);
-  float* K = reinterpret_cast<float*>(cnt + QT);
-  int* I = reinterpret_cast<int*>(K + QT * L);
+  float* K;
+  int* I;
+  if (a.scratch_keys) {
+    const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    K = a.scratch_keys + block * QT * L;
+    I = a.scratch_ids + block * QT * L;
+  } else {
+    K = reinterpret_cast<float*>(cnt + QT);
+    I = reinterpret_cast<int*>(K + QT * L);
+  }
   const int q0 = blockIdx.x * QT;
-  for (int i = threadIdx.x; i < QT * L; i += THREADS) { K[i] = neg_inf(); I[i] = 0x7fffffff; }
+  for (int i = threadIdx.x; i < QT * L; i += THREADS) { K[i] = neg_inf(); I[i] = NO_ID; }
   if (threadIdx.x < QT) { thr[threadIdx.x] = neg_inf(); cnt[threadIdx.x] = 0; }
   load_queries<DT, QT>(a, q0, qs, qsum8);
 
@@ -312,8 +196,8 @@ __global__ void __launch_bounds__(THREADS) scan_big_k(ScanArgs a) {
       for (int t = 1; t < QT; t++) if (lane == t) mine = s[t];
       if (lane < QT && mine > thr[lane]) {
         const int p = atomicAdd(&cnt[lane], 1);
-        K[lane * L + KB + p] = mine;
-        I[lane * L + KB + p] = r;
+        K[(size_t)lane * L + KB + p] = mine;
+        I[(size_t)lane * L + KB + p] = r;
       }
     }
     __syncthreads();
@@ -327,12 +211,12 @@ __global__ void __launch_bounds__(THREADS) scan_big_k(ScanArgs a) {
       bitonic_sort(K, I, QT, L);
       for (int i = threadIdx.x; i < QT * KB; i += THREADS) {
         const int t = i / KB, j = i - t * KB;
-        K[t * L + KB + j] = neg_inf();
-        I[t * L + KB + j] = 0x7fffffff;
+        K[(size_t)t * L + KB + j] = neg_inf();
+        I[(size_t)t * L + KB + j] = NO_ID;
       }
       if (threadIdx.x < QT) {
         cnt[threadIdx.x] = 0;
-        thr[threadIdx.x] = K[threadIdx.x * L + a.k - 1];
+        thr[threadIdx.x] = K[(size_t)threadIdx.x * L + a.k - 1];
       }
       __syncthreads();
     }
@@ -341,67 +225,20 @@ __global__ void __launch_bounds__(THREADS) scan_big_k(ScanArgs a) {
     const int t = i / a.k, j = i - t * a.k;
     if (q0 + t < a.Q) {
       const size_t o = ((size_t)(q0 + t) * gridDim.y + blockIdx.y) * a.k + j;
-      a.cand_keys[o] = K[t * L + j];
-      a.cand_ids[o] = I[t * L + j];
+      a.cand_keys[o] = K[(size_t)t * L + j];
+      a.cand_ids[o] = I[(size_t)t * L + j];
     }
   }
 }
 
-// One block per query: the best k of its n_cand candidates. Candidates
-// that cannot beat the running k-th best are dropped on load; the rest
-// collect in shared memory and are bitonic-sorted with the running best.
-// Slots left at -inf get id 0, as the TPU kernel leaves them.
-__global__ void __launch_bounds__(MERGE_THREADS) merge_topk_kernel(
-    const float* __restrict__ cand_keys, const int* __restrict__ cand_ids,
-    int n_cand, int k, int kp, float* __restrict__ out_keys, int* __restrict__ out_ids) {
-  __shared__ float K[MERGE_LEN];
-  __shared__ int I[MERGE_LEN];
-  __shared__ int cnt;
-  __shared__ float thr_k;
-  __shared__ int thr_i;
-  const size_t base = (size_t)blockIdx.x * n_cand;
-  for (int i = threadIdx.x; i < kp; i += MERGE_THREADS) { K[i] = neg_inf(); I[i] = 0x7fffffff; }
-  if (threadIdx.x == 0) { cnt = 0; thr_k = neg_inf(); thr_i = 0x7fffffff; }
-  __syncthreads();
-  for (int start = 0; start < n_cand; start += MERGE_THREADS) {
-    const int j = start + threadIdx.x;
-    if (j < n_cand) {
-      const float key = __ldg(cand_keys + base + j);
-      const int id = __ldg(cand_ids + base + j);
-      if (before(key, id, thr_k, thr_i)) {
-        const int p = atomicAdd(&cnt, 1);
-        K[kp + p] = key;
-        I[kp + p] = id;
-      }
-    }
-    __syncthreads();
-    const int c = cnt;
-    const bool flush = c > MERGE_LEN - kp - MERGE_THREADS ||
-                       (start + MERGE_THREADS >= n_cand && c > 0);
-    __syncthreads();
-    if (flush) {
-      int L = 1;
-      while (L < kp + c) L <<= 1;
-      for (int i = kp + c + threadIdx.x; i < L; i += MERGE_THREADS) {
-        K[i] = neg_inf();
-        I[i] = 0x7fffffff;
-      }
-      __syncthreads();
-      bitonic_sort(K, I, 1, L);
-      if (threadIdx.x == 0) { cnt = 0; thr_k = K[k - 1]; thr_i = I[k - 1]; }
-      __syncthreads();
-    }
-  }
-  for (int j = threadIdx.x; j < k; j += MERGE_THREADS) {
-    const float key = K[j];
-    out_keys[(size_t)blockIdx.x * k + j] = key;
-    out_ids[(size_t)blockIdx.x * k + j] = (key == neg_inf()) ? 0 : I[j];
-  }
-}
+static int big_kb(int k) { return next_pow2(k) > MIN_KB ? next_pow2(k) : MIN_KB; }
 
 static size_t scan_smem_bytes(int qt, int d_pad, int big, int kb) {
   size_t b = (size_t)qt * d_pad * 4 + (size_t)qt * 4;
-  if (big) b += (size_t)qt * 8 + (size_t)qt * 2 * kb * 8;
+  if (big) {
+    b += (size_t)qt * 8;
+    if (kb <= SMEM_MAX_KB) b += (size_t)qt * 2 * kb * 8;
+  }
   return b;
 }
 
@@ -431,41 +268,58 @@ static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int big, cud
   }
 }
 
-static int next_pow2(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
 extern "C" int vdb_scan_smem_bytes(int qt, int d_pad, int big, int k) {
-  const int kb = next_pow2(k) > MIN_KB ? next_pow2(k) : MIN_KB;
-  return (int)scan_smem_bytes(qt, d_pad, big, kb);
+  return (int)scan_smem_bytes(qt, d_pad, big, big_kb(k));
 }
 
 extern "C" int vdb_warps_per_block(void) { return WARPS; }
+
+// (key, id) slots of device-memory scratch vdb_flat_topk needs: the big-k
+// regions when they do not fit in shared memory, then the merge's working
+// areas when they do not. 0 when everything fits.
+static size_t scan_scratch_slots(int Q, int qt, int splits, int k) {
+  const int kb = big_kb(k);
+  if (k <= 32 || kb <= SMEM_MAX_KB) return 0;
+  return (size_t)((Q + qt - 1) / qt) * splits * qt * 2 * kb;
+}
+
+static size_t merge_scratch_slots(int Q, int k) {
+  return merge_len(k) > MERGE_SMEM_MAX_LEN ? (size_t)Q * merge_len(k) : 0;
+}
+
+extern "C" long long vdb_flat_scratch_slots(int Q, int qt, int splits, int k) {
+  return (long long)(scan_scratch_slots(Q, qt, splits, k) + merge_scratch_slots(Q, k));
+}
 
 // q: (Q, d_pad) f32, already rounded to the storage type's query precision.
 // db: (>= count, row_bytes) rows of dtype (0 f32, 1 bf16, 2 int8, 3 int4).
 // sq / mask / scales: per-row f32 or null. cand_*: (Q, n_lists, k) scratch
 // with n_lists = splits * WARPS when k <= 32, else splits. out_*: (Q, k).
+// scratch_*: vdb_flat_scratch_slots(Q, qt, splits, k) slots, or null when
+// that is 0.
 extern "C" int vdb_flat_topk(const float* q, int Q, int d_pad, const void* db, int dtype,
                              int row_bytes, int count, const float* sq, const float* mask,
                              const float* scales, int euclid, int k, int qt, int splits,
                              int rows_per_split, float* cand_keys, int* cand_ids,
-                             float* out_keys, int* out_ids, void* stream) {
-  if (k < 1 || k > 1024 || Q < 1 || splits < 1 || row_bytes % 16 ||
-      (euclid && !sq) || (dtype == DT_I4 && !scales))
+                             float* out_keys, int* out_ids, float* scratch_keys,
+                             int* scratch_ids, void* stream) {
+  if (k < 1 || Q < 1 || splits < 1 || row_bytes % 16 ||
+      (euclid && !sq) || (dtype == DT_I4 && !scales) ||
+      (vdb_flat_scratch_slots(Q, qt, splits, k) && (!scratch_keys || !scratch_ids)))
     return cudaErrorInvalidValue;
   const int big = k > 32;
+  const size_t scan_slots = scan_scratch_slots(Q, qt, splits, k);
   ScanArgs a;
   a.q = q; a.Q = Q; a.d_pad = d_pad;
   a.db = static_cast<const uint8_t*>(db);
   a.row_bytes = row_bytes; a.count = count;
   a.sq = sq; a.mask = mask; a.scales = scales;
   a.euclid = euclid; a.k = k;
-  a.kb = next_pow2(k) > MIN_KB ? next_pow2(k) : MIN_KB;
+  a.kb = big_kb(k);
   a.rows_per_split = rows_per_split;
   a.cand_keys = cand_keys; a.cand_ids = cand_ids;
+  a.scratch_keys = scan_slots ? scratch_keys : nullptr;
+  a.scratch_ids = scan_slots ? scratch_ids : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
@@ -477,7 +331,8 @@ extern "C" int vdb_flat_topk(const float* q, int Q, int d_pad, const void* db, i
   }
   if (err != cudaSuccess) return err;
   const int n_lists = big ? splits : splits * WARPS;
-  merge_topk_kernel<<<Q, MERGE_THREADS, 0, st>>>(cand_keys, cand_ids, n_lists * k, k,
-                                                 next_pow2(k), out_keys, out_ids);
-  return cudaGetLastError();
+  return launch_merge(cand_keys, cand_ids, Q, n_lists * k, k,
+                      scratch_keys ? scratch_keys + scan_slots : nullptr,
+                      scratch_ids ? scratch_ids + scan_slots : nullptr,
+                      out_keys, out_ids, 0, st);
 }

@@ -1,0 +1,262 @@
+// Device code shared by flat_topk.cu and ivf_topk.cu: the (key, id) order,
+// the warp's dot product of one stored row against queries held in shared
+// memory, a block-wide bitonic sort and the per-query merge of candidate
+// lists.
+//
+// Order everywhere is key descending, then id ascending. Slots that hold no
+// row carry key -inf and id INT_MAX while they are being sorted.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define WARPS 8
+#define THREADS (WARPS * 32)
+#define MAXC 8                 // 16-byte chunks in flight per lane
+#define MERGE_THREADS 512
+#define MERGE_MIN_LEN 4096     // least working area of the merge, in slots
+#define MAX_SMEM 232448
+#define FULL 0xffffffffu
+#define NO_ID 0x7fffffff
+
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I4 = 3 };
+
+__device__ __forceinline__ bool before(float ka, int ia, float kb, int ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 q, float a, float b, float c,
+                                      float d, float acc) {
+  acc = fmaf(q.x, a, acc);
+  acc = fmaf(q.y, b, acc);
+  acc = fmaf(q.z, c, acc);
+  return fmaf(q.w, d, acc);
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ float i8_at(uint32_t w, int j) {
+  return (float)(int8_t)((w >> (8 * j)) & 0xffu);
+}
+
+// Accumulate one 16-byte chunk `v` (chunk index c of the row) against the
+// QT queries in shared memory.
+template <int DT, int QT>
+__device__ __forceinline__ void chunk_dot(uint4 v, int c, const float* qs,
+                                          int d_pad, float (&acc)[QT]) {
+  if (DT == DT_F32) {
+    const float x0 = __uint_as_float(v.x), x1 = __uint_as_float(v.y);
+    const float x2 = __uint_as_float(v.z), x3 = __uint_as_float(v.w);
+#pragma unroll
+    for (int t = 0; t < QT; t++)
+      acc[t] = dot4(lds4(qs + t * d_pad + c * 4), x0, x1, x2, x3, acc[t]);
+  } else if (DT == DT_BF16) {
+#pragma unroll
+    for (int t = 0; t < QT; t++) {
+      const float* qp = qs + t * d_pad + c * 8;
+      float a = dot4(lds4(qp), bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y), acc[t]);
+      acc[t] = dot4(lds4(qp + 4), bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w), a);
+    }
+  } else if (DT == DT_I8) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int t = 0; t < QT; t++) {
+      const float* qp = qs + t * d_pad + c * 16;
+      float a = acc[t];
+#pragma unroll
+      for (int g = 0; g < 4; g++)
+        a = dot4(lds4(qp + 4 * g), i8_at(w[g], 0), i8_at(w[g], 1),
+                 i8_at(w[g], 2), i8_at(w[g], 3), a);
+      acc[t] = a;
+    }
+  } else {  // int4: byte j = (component j in the low nibble, j + d/2 high)
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const int half = d_pad / 2;
+#pragma unroll
+    for (int t = 0; t < QT; t++) {
+      const float* lo = qs + t * d_pad + c * 16;
+      const float* hi = lo + half;
+      float a = acc[t];
+#pragma unroll
+      for (int g = 0; g < 4; g++) {
+        const uint32_t x = w[g];
+        a = dot4(lds4(lo + 4 * g), (float)(x & 15u), (float)((x >> 8) & 15u),
+                 (float)((x >> 16) & 15u), (float)((x >> 24) & 15u), a);
+        a = dot4(lds4(hi + 4 * g), (float)((x >> 4) & 15u), (float)((x >> 12) & 15u),
+                 (float)((x >> 20) & 15u), (float)(x >> 28), a);
+      }
+      acc[t] = a;
+    }
+  }
+}
+
+// The QT keys of one row, identical in every lane of the warp.
+template <int DT, int QT>
+__device__ __forceinline__ void row_keys(const uint4* __restrict__ row, int n_chunks,
+                                         const float* qs, const float* qsum8,
+                                         int d_pad, int lane, float scale,
+                                         float sqnorm, int euclid, float (&acc)[QT]) {
+#pragma unroll
+  for (int t = 0; t < QT; t++) acc[t] = 0.f;
+  for (int c0 = 0; c0 < n_chunks; c0 += 32 * MAXC) {
+    uint4 v[MAXC];
+#pragma unroll
+    for (int u = 0; u < MAXC; u++) {
+      const int c = c0 + u * 32 + lane;
+      if (c < n_chunks) v[u] = __ldg(row + c);
+    }
+#pragma unroll
+    for (int u = 0; u < MAXC; u++) {
+      const int c = c0 + u * 32 + lane;
+      if (c < n_chunks) chunk_dot<DT, QT>(v[u], c, qs, d_pad, acc);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < QT; t++) {
+    float s = acc[t];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+    if (DT == DT_I4) s = (s - qsum8[t]) * scale;  // offset 8 folded out
+    if (euclid) s = 2.f * s - sqnorm;             // rank-equivalent L2 key
+    acc[t] = s;
+  }
+}
+
+// Insert (s, sid) into a warp's sorted list (lane j holds the j-th best of
+// k <= 32). The caller has checked that it beats the k-th entry.
+__device__ __forceinline__ void warp_insert(float& val, int& id, float s, int sid,
+                                            int k, int lane) {
+  const int pos = __popc(__ballot_sync(FULL, lane < k && before(val, id, s, sid)));
+  const float up_v = __shfl_up_sync(FULL, val, 1);
+  const int up_i = __shfl_up_sync(FULL, id, 1);
+  if (lane == pos) { val = s; id = sid; }
+  else if (lane > pos && lane < k) { val = up_v; id = up_i; }
+}
+
+// Bitonic sort, key descending then id ascending, of n_regions regions of
+// length L (a power of two) laid out back to back, in shared or device
+// memory. All threads of the block take part; ends synchronized.
+__device__ void bitonic_sort(float* K, int* I, int n_regions, int L) {
+  const int half = L / 2;
+  for (int size = 2; size <= L; size <<= 1) {
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < n_regions * half; i += blockDim.x) {
+        const int t = i / half, j = i - t * half;
+        const int lo = (j / stride) * 2 * stride + (j % stride);
+        const size_t a = (size_t)t * L + lo, b = a + stride;
+        const bool desc = (lo & size) == 0;
+        const float ka = K[a], kb = K[b];
+        const int ia = I[a], ib = I[b];
+        if (desc ? before(kb, ib, ka, ia) : before(ka, ia, kb, ib)) {
+          K[a] = kb; K[b] = ka; I[a] = ib; I[b] = ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__host__ __device__ inline int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Working area of merge_topk_kernel for a given k, in (key, id) slots: the
+// sorted best next_pow2(k) and room for at least as many candidates.
+inline int merge_len(int k) {
+  const int kp2 = 2 * next_pow2(k);
+  return kp2 > MERGE_MIN_LEN ? kp2 : MERGE_MIN_LEN;
+}
+
+// Largest merge area kept in shared memory (128 KB); past it the area is
+// device-memory scratch that the caller passes.
+#define MERGE_SMEM_MAX_LEN 16384
+
+// One block per query: the best k of its n_cand candidates. Candidates
+// that cannot beat the running k-th best are dropped on load; the rest
+// collect in the working area of ml slots (dynamic shared memory, or
+// scratch + blockIdx.x * ml in device memory when scratch is given) and
+// are bitonic-sorted with the running best. Slots left at -inf get id
+// empty_id.
+__global__ void __launch_bounds__(MERGE_THREADS) merge_topk_kernel(
+    const float* __restrict__ cand_keys, const int* __restrict__ cand_ids,
+    int n_cand, int k, int kp, int ml, float* scratch_keys, int* scratch_ids,
+    float* __restrict__ out_keys, int* __restrict__ out_ids, int empty_id) {
+  extern __shared__ float smem[];
+  float* K;
+  int* I;
+  if (scratch_keys) {
+    K = scratch_keys + (size_t)blockIdx.x * ml;
+    I = scratch_ids + (size_t)blockIdx.x * ml;
+  } else {
+    K = smem;
+    I = reinterpret_cast<int*>(smem + ml);
+  }
+  __shared__ int cnt;
+  __shared__ float thr_k;
+  __shared__ int thr_i;
+  const size_t base = (size_t)blockIdx.x * n_cand;
+  for (int i = threadIdx.x; i < kp; i += MERGE_THREADS) { K[i] = neg_inf(); I[i] = NO_ID; }
+  if (threadIdx.x == 0) { cnt = 0; thr_k = neg_inf(); thr_i = NO_ID; }
+  __syncthreads();
+  for (int start = 0; start < n_cand; start += MERGE_THREADS) {
+    const int j = start + threadIdx.x;
+    if (j < n_cand) {
+      const float key = __ldg(cand_keys + base + j);
+      const int id = __ldg(cand_ids + base + j);
+      if (before(key, id, thr_k, thr_i)) {
+        const int p = atomicAdd(&cnt, 1);
+        K[kp + p] = key;
+        I[kp + p] = id;
+      }
+    }
+    __syncthreads();
+    const int c = cnt;
+    const bool flush = c > ml - kp - MERGE_THREADS ||
+                       (start + MERGE_THREADS >= n_cand && c > 0);
+    __syncthreads();
+    if (flush) {
+      const int L = next_pow2(kp + c);  // <= ml: c <= ml - kp
+      for (int i = kp + c + threadIdx.x; i < L; i += MERGE_THREADS) {
+        K[i] = neg_inf();
+        I[i] = NO_ID;
+      }
+      __syncthreads();
+      bitonic_sort(K, I, 1, L);
+      if (threadIdx.x == 0) { cnt = 0; thr_k = K[k - 1]; thr_i = I[k - 1]; }
+      __syncthreads();
+    }
+  }
+  for (int j = threadIdx.x; j < k; j += MERGE_THREADS) {
+    const float key = K[j];
+    out_keys[(size_t)blockIdx.x * k + j] = key;
+    out_ids[(size_t)blockIdx.x * k + j] = (key == neg_inf()) ? empty_id : I[j];
+  }
+}
+
+// Launch merge_topk_kernel for Q queries of n_cand candidates each.
+// scratch: Q * merge_len(k) (key, id) slots of device memory when
+// merge_len(k) > MERGE_SMEM_MAX_LEN, else unused (may be null).
+static cudaError_t launch_merge(const float* cand_keys, const int* cand_ids, int Q,
+                                int n_cand, int k, float* scratch_keys,
+                                int* scratch_ids, float* out_keys, int* out_ids,
+                                int empty_id, cudaStream_t st) {
+  const int ml = merge_len(k);
+  const bool global = ml > MERGE_SMEM_MAX_LEN;
+  if (global && (!scratch_keys || !scratch_ids)) return cudaErrorInvalidValue;
+  const int smem = global ? 0 : ml * 8;
+  cudaFuncSetAttribute(merge_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  merge_topk_kernel<<<Q, MERGE_THREADS, smem, st>>>(
+      cand_keys, cand_ids, n_cand, k, next_pow2(k), ml,
+      global ? scratch_keys : nullptr, global ? scratch_ids : nullptr,
+      out_keys, out_ids, empty_id);
+  return cudaGetLastError();
+}

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``tpu_vector_db_torch/csrc/`` expose a plain C
-interface. At first use they are compiled with ``nvcc`` for ``sm_90a``
-into ``tpu_vector_db_torch/_build/`` (one shared library per source,
-named by a hash of its content, so an edited source rebuilds) and loaded
-with ``ctypes``. Nothing is built when a module is imported.
+The sources under ``tpu_vector_db_torch/csrc/`` (``flat_topk.cu``,
+``ivf_topk.cu``, and the header they share) expose a plain C interface.
+At first use each ``.cu`` is compiled with ``nvcc`` for ``sm_90a`` into
+``tpu_vector_db_torch/_build/`` (one shared library per source, named by
+a hash of its content, so an edited source rebuilds) and loaded with
+``ctypes``. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives (the hash
+    covers the source, the shared headers and the flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 

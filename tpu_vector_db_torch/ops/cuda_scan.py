@@ -4,11 +4,13 @@ Counterpart of ``tpu_vector_db/ops/pallas_scan.py::pallas_flat_topk``,
 with the same contract. The kernels are ``csrc/flat_topk.cu``:
 
 * ``scan_kernel``      (k <= 32) replaces ``_scan_kernel``;
-* ``scan_kernel_bigk`` (32 < k <= 1024) replaces ``_scan_kernel_bigk``.
+* ``scan_kernel_bigk`` (k > 32) replaces ``_scan_kernel_bigk``. The TPU
+  kernel stops at k = 1024, where the JAX store turns to its XLA scan;
+  this kernel takes any k, so the store serves every k on the card.
 
 ``flat_topk`` launches the kernel for a CUDA tensor and uses
 ``flat_topk_plain`` only for a tensor on the CPU. Each launch adds one to
-that kernel's count in ``LAUNCHES``.
+that kernel's count in ``LAUNCHES`` (``ops/launches.py``).
 
 Keys are in the maximize convention of ops/distance.py: cosine/dot the
 score, euclidean ``-(||q - x||^2)``. Order is key descending, then id
@@ -26,28 +28,23 @@ import threading
 
 import torch
 
+from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.scan import scan_blocks
 from tpu_vector_db_torch.ops.topk import NEG_INF
 
 MAX_K_SMALL = 32      # scan_kernel: per-warp register lists
-MAX_K = 1024          # scan_kernel_bigk: shared-memory sorted buffer
 _MAX_SMEM = 232448    # dynamic shared memory a block may use on sm_90
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.uint8: 3}
 # blocks the partial pass aims for: a few per SM on the 132 SMs
 _TARGET_BLOCKS = {False: 528, True: 264}
+# big-k: a split scans at least 4*k rows, so that a large k does not send
+# (nearly) every row of a short split on to the merge
 _MIN_ROWS_PER_SPLIT = {False: 1024, True: 4096}
+_BIG_ROWS_PER_K = 4
 
-LAUNCHES = {"scan_kernel": 0, "scan_kernel_bigk": 0}
-_launch_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib = None
-
-
-def reset_launch_counts() -> None:
-    with _launch_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
 
 
 def kernel_name(k: int) -> str:
@@ -62,8 +59,11 @@ def _library() -> ctypes.CDLL:
             lib = _build.load("flat_topk")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vdb_flat_topk.argtypes = [
-                p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p]
+                p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p,
+                p, p]
             lib.vdb_flat_topk.restype = i
+            lib.vdb_flat_scratch_slots.argtypes = [i, i, i, i]
+            lib.vdb_flat_scratch_slots.restype = ctypes.c_longlong
             lib.vdb_scan_smem_bytes.argtypes = [i, i, i, i]
             lib.vdb_scan_smem_bytes.restype = i
             lib.vdb_warps_per_block.argtypes = []
@@ -80,8 +80,8 @@ def query_dtype(db_dtype: torch.dtype) -> torch.dtype:
 
 def _check(queries, db, k, db_scales) -> int:
     """Validate the contract; returns d_pad (unpacked width)."""
-    if k < 1 or k > MAX_K:
-        raise ValueError(f"flat_topk supports 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"flat_topk needs k >= 1, got {k}")
     if db.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported db dtype {db.dtype}")
     quant4 = db.dtype == torch.uint8
@@ -168,8 +168,10 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
             qt = cand
             break
     tiles = -(-q_n // qt)
+    min_rows = max(_MIN_ROWS_PER_SPLIT[big], _BIG_ROWS_PER_K * k if big
+                   else 0)
     splits = max(1, min(-(-_TARGET_BLOCKS[big] // tiles),
-                        -(-count // _MIN_ROWS_PER_SPLIT[big])))
+                        -(-count // min_rows)))
     rows_per_split = max(1, -(-count // splits))
     splits = max(1, -(-count // rows_per_split))
     n_lists = splits if big else splits * lib.vdb_warps_per_block()
@@ -179,6 +181,12 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     cand_ids = torch.empty((q_n, n_lists, k), dtype=torch.int32, device=dev)
     keys = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    # device-memory scratch for k > 8192 (big-k regions, merge areas)
+    slots = lib.vdb_flat_scratch_slots(q_n, qt, splits, k)
+    scratch_keys = scratch_ids = None
+    if slots:
+        scratch_keys = torch.empty(slots, dtype=torch.float32, device=dev)
+        scratch_ids = torch.empty(slots, dtype=torch.int32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -189,11 +197,10 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
             ptr(q), q_n, d_pad, ptr(db), _DTYPE_CODES[db.dtype], row_bytes,
             count, ptr(sq), ptr(mask), ptr(scales), int(euclid), k, qt,
             splits, rows_per_split, ptr(cand_keys), ptr(cand_ids),
-            ptr(keys), ptr(ids), stream)
+            ptr(keys), ptr(ids), ptr(scratch_keys), ptr(scratch_ids), stream)
     if err != 0:
         raise RuntimeError(f"flat_topk kernel failed: CUDA error {err}")
-    with _launch_lock:
-        LAUNCHES[kernel_name(k)] += 1
+    record(kernel_name(k))
     return keys, ids
 
 

@@ -1,7 +1,6 @@
-"""TorchVectorStore — the exact flat store on a CUDA device.
+"""TorchVectorStore — the vector store on a CUDA device.
 
-Counterpart of ``tpu_vector_db/store/vector_store.py::TPUVectorStore``,
-its flat path:
+Counterpart of ``tpu_vector_db/store/vector_store.py::TPUVectorStore``:
 
 * the device matrix is CAPACITY-DOUBLED and preallocated, so appends
   write rows in place by slice assignment (the JAX package donates the
@@ -12,18 +11,24 @@ its flat path:
   live on the host for persistence and rerank;
 * metadata filters and tombstones become one f32 mask that the scan
   kernel reads beside the rows;
-* every query is one launch of ``ops/cuda_scan.flat_topk`` and one packed
-  device-to-host copy.
+* an exact query is one launch of ``ops/cuda_scan.flat_topk`` (any k)
+  and one packed device-to-host copy;
+* with ``enable_ann=True`` the store keeps an IVF index
+  (``index/ivf.py``; ``index_type="auto"`` picks it from 100K rows) and
+  routes each query as the JAX store does: to the index, or to the exact
+  scan for k > 32, batches of 32 and more (auto mode), filters that keep
+  few rows, heavily deleted stores, a stale index and a low sampled
+  recall. The index is refreshed on add outside the store lock, rebuilt
+  by ``optimize()``, and saved beside the store as ``ann_ivf.npz``.
 
 The store runs on ``device`` ("cuda" by default). It raises when CUDA is
-absent unless the caller passes ``device="cpu"``, where the scan is the
-kernel's plain version. The on-disk format is the JAX package's, so a
-store saved by either package opens in the other.
+absent unless the caller passes ``device="cpu"``, where every kernel's
+plain version runs instead. The on-disk format, the IVF sidecar
+included, is the JAX package's, so a store saved by either package opens
+in the other and serves its index without a rebuild.
 
-ANN (``enable_ann=True``) belongs to the port's IVF slice and raises
-NotImplementedError here. A query whose scan needs more than
-``cuda_scan.MAX_K`` (1024) rows -- k, or k x rerank_oversample with
-rerank -- raises ValueError; the JAX store serves it with its XLA scan.
+``index_type="beam_graph"`` raises NotImplementedError: the graph index
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import math
 import shutil
 import threading
 import time
@@ -40,7 +46,8 @@ import numpy as np
 import torch
 
 from tpu_vector_db_torch.ops import distance as D
-from tpu_vector_db_torch.ops.cuda_scan import MAX_K, flat_topk
+from tpu_vector_db_torch.index.ivf import IVFIndex
+from tpu_vector_db_torch.ops.cuda_scan import flat_topk
 from tpu_vector_db_torch.ops.monitor import performance_monitor
 from tpu_vector_db_torch.ops.quant4 import quantize_unit_rows
 from tpu_vector_db_torch.ops.topk import NEG_INF
@@ -175,18 +182,24 @@ class TorchVectorStore:
                             f"{field_}={have!r}, got config with "
                             f"{want!r}")
             self.config = config
-        if self.config.enable_ann:
+        if self.config.enable_ann and self.config.ann_params.get(
+                "index_type", "auto") == "beam_graph":
             raise NotImplementedError(
-                "enable_ann=True needs the ANN index, which the port adds "
-                "with its IVF slice (ops/kmeans.py, index/ivf.py and the "
-                "IVF probe kernel); this store serves the exact flat scan "
-                "only")
+                "index_type='beam_graph' needs the beam-graph index, which "
+                "is not ported yet; use 'auto', 'ivf' or 'flat'")
         self.store_path = Path(store_path)
         ensure_directory(self.store_path)
         self._lock = threading.RLock()
         # queries are READERS, mutations are WRITERS: in-place appends and
-        # buffer swaps must not overlap a launched scan
+        # buffer swaps must not overlap a launched scan. Lock order:
+        # _lock -> rw.write; rw.read -> _ann_build_lock; never the reverse
         self._rw = RWLock()
+        # serializes ANN builds and extends apart from the store lock, so
+        # queries never wait behind an index build: add_vectors appends
+        # under _lock, then refreshes the index under this lock only, and
+        # queries route to the exact scan while the index is stale.
+        # Reentrant: admin paths (optimize/compact) nest refreshes.
+        self._ann_build_lock = threading.RLock()
         self._file_lock = FileLock(self.store_path)
         self._dirty = False
 
@@ -217,6 +230,17 @@ class TorchVectorStore:
         self._db: torch.Tensor | None = None        # (cap, d_pad) prepared
         self._sqnorms: torch.Tensor | None = None   # (cap,) f32, euclidean
         self._scales: torch.Tensor | None = None    # (cap,) f32, int4 only
+
+        # ANN index, built lazily
+        self._ann: IVFIndex | None = None
+        self._ann_stale = True
+        # index_type='auto': resolved from the store size, re-checked on
+        # every full (re)build; see _auto_pick_kind
+        self._auto_kind: str | None = None
+        # sampled-recall guard after builds (_ann_self_check)
+        self._ann_recall_estimate: float | None = None
+        self._ann_low_recall = False
+        self._ann_checked_at = 0
 
         self._load()
 
@@ -315,11 +339,34 @@ class TorchVectorStore:
             else:
                 self._write_rows(arr, self._count)
                 self._count = new_count
+            self._ann_stale = True
             self._dirty = True
             if self.config.persist_mode == "sync":
                 self._save()
+        # the index refresh runs OUTSIDE the store lock: queries meanwhile
+        # use the previous index or, while it is stale, the exact scan,
+        # which already covers the new rows
+        if self.config.enable_ann:
+            self._refresh_ann_tail()
         performance_monitor.record("add_vectors", time.perf_counter() - t_add)
         return {"added": n, "total": self._count}
+
+    def _refresh_ann_tail(self) -> None:
+        """Index the appended tail without holding the store lock.
+
+        The extend range comes from the index's own size, so back-to-back
+        adds queue on _ann_build_lock and the first holder indexes every
+        row appended so far. Holds rw.read for the build: queries stay
+        live, while a concurrent add (a writer) waits."""
+        with self._rw.read(), self._ann_build_lock:
+            if not self._ann_stale:
+                return  # a previous holder already covered our rows
+            if (self._ann is not None and self._ann_kind != "flat"
+                    and self._ann.built):
+                start = self._ann.size
+            else:
+                start = 0
+            self._refresh_ann(incremental_from=start or None)
 
     def delete_vectors(self, indices) -> dict:
         """Tombstone rows by id — ids stay STABLE (no reindexing)."""
@@ -339,10 +386,12 @@ class TorchVectorStore:
             return {"deleted": deleted,
                     "live": self._count - len(self._deleted)}
 
-    def compact(self, want_remap: bool = True) -> dict:
+    def compact(self, rebuild_ann: bool = True,
+                want_remap: bool = True) -> dict:
         """Physically remove tombstoned rows and rebuild the device
-        buffers. Returns the id remap (old -> new) of the ids that MOVED
-        (old >= the first deleted id); want_remap=False skips it."""
+        buffers and any ANN index (rebuild_ann=False leaves the rebuild to
+        the caller). Returns the id remap (old -> new) of the ids that
+        MOVED (old >= the first deleted id); want_remap=False skips it."""
         with self._lock, self._rw.write():
             if not self._deleted:
                 return {"compacted": 0, "live": self._count, "remap": {}}
@@ -364,7 +413,11 @@ class TorchVectorStore:
             self._live_mask_version += 1
             self._live_mask_cache = None
             self._live_mask_dev = None
+            # routing and recall state came from the old corpus
+            self._reset_ann_state()
             self._reset_device(self._capacity_for(max(self._count, 1)))
+            if rebuild_ann and self.config.enable_ann and self._count:
+                self._refresh_ann()
             self._dirty = True
             if self.config.persist_mode == "sync":
                 self._save()
@@ -411,10 +464,20 @@ class TorchVectorStore:
             self._db = None
             self._sqnorms = None
             self._scales = None
+            # a latched low-recall verdict must not outlive the corpus
+            self._reset_ann_state()
             self._deleted = set()
             self._live_mask_cache = None
             self._live_mask_dev = None
             self._dirty = False
+
+    def _reset_ann_state(self) -> None:
+        self._ann = None
+        self._ann_stale = True
+        self._auto_kind = None
+        self._ann_low_recall = False
+        self._ann_checked_at = 0
+        self._ann_recall_estimate = None
 
     # ---------------------------------------------------------------- query
 
@@ -422,16 +485,25 @@ class TorchVectorStore:
         return torch.from_numpy(
             np.ascontiguousarray(host_mask, np.float32)).to(self.device)
 
-    def _query_mask(self, filter_metadata: dict | None
+    def _host_query_mask(self, filter_metadata: dict | None
+                         ) -> np.ndarray | None:
+        """Host (cap,) mask of the rows a query may return: the filter
+        mask times the live mask, the live mask alone, or None (all)."""
+        live_mask = self._live_host_mask()
+        if not filter_metadata:
+            return live_mask
+        host_mask = self._meta_index.mask(filter_metadata, self._cap)
+        return host_mask if live_mask is None else host_mask * live_mask
+
+    def _query_mask(self, filter_metadata: dict | None,
+                    host_mask: np.ndarray | None = None
                     ) -> torch.Tensor | None:
-        """Device (cap,) mask of the rows a query may return: the filter
-        mask times the live mask, or the cached live mask alone."""
+        """Device copy of ``_host_query_mask`` (``host_mask`` when the
+        caller has it already); without a filter, the cached live mask."""
         if not filter_metadata:
             return self._device_live_mask()
-        host_mask = self._meta_index.mask(filter_metadata, self._cap)
-        live_mask = self._live_host_mask()
-        if live_mask is not None:
-            host_mask = host_mask * live_mask
+        if host_mask is None:
+            host_mask = self._host_query_mask(filter_metadata)
         return self._filter_mask(host_mask)
 
     def _scan_inputs(self, queries: np.ndarray,
@@ -495,11 +567,12 @@ class TorchVectorStore:
                     rerank: bool = False):
         """Batched top-k: list of (indices, raw_scores, metadata) per query.
 
-        rerank=True (lossy storage dtypes bfloat16/int8/int4): the scan
+        rerank=True (lossy storage dtypes bfloat16/int8/int4): the engine
         oversamples k * ann_params["rerank_oversample"] (default 4)
         candidates, which are re-scored against the ORIGINAL f32 host
-        rows. No-op on float32 stores. ``use_ann`` is accepted for the
-        JAX store's signature; this store has no ANN index."""
+        rows. No-op on float32 stores. use_ann=False forces the exact
+        scan on an ANN store; an ANN query that fails falls back to the
+        exact scan with a warning, as in the JAX store."""
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         arr = validate_vector_shape(query_vectors, self.config.dimension)
@@ -522,15 +595,50 @@ class TorchVectorStore:
             over = int(self.config.ann_params.get("rerank_oversample", 4))
             k_engine = (min(self._count, k_eff * max(over, 1))
                         if rerank_active else k_eff)
-            if k_engine > MAX_K:
-                raise ValueError(
-                    f"the exact scan returns at most {MAX_K} rows per "
-                    f"query; this call needs {k_engine} (k={k_eff}"
-                    + (f" x rerank_oversample {over})" if rerank_active
-                       else ")"))
+
+            p = self.config.ann_params
+            # routing: ANN only past ann_min_rows (0: always, when enabled)
+            min_rows = p.get("ann_min_rows", p.get("min_rows", 0))
+            # IVF large-k: past the probe kernel's k = 32 the exact big-k
+            # scan serves the query. Tombstones post-filter out of ANN
+            # results like filters, and share their oversample
+            fetch_k = self._post_filter_fetch_k(k_engine,
+                                                bool(filter_metadata))
+            ivf_large_k = self._ann_kind == "ivf" and fetch_k > 32
+            # a filter that keeps few rows, or a mostly deleted store,
+            # would post-filter the ANN oversample to fewer than k hits;
+            # the masked exact scan is exact there
+            host_mask = self._host_query_mask(filter_metadata)
+            low_sel_filter = False
+            if filter_metadata:
+                live = float(host_mask[:max(self._count, 1)].sum())
+                low_sel_filter = live < p.get(
+                    "filter_exact_selectivity", 0.05) * self._count
+            elif self._deleted:
+                live_frac = live_total / max(self._count, 1)
+                low_sel_filter = live_frac < p.get(
+                    "deleted_exact_live_frac", 0.25)
+            # auto mode: a large batch below the row crossover is one
+            # exact sweep shared by the batch (index_type='auto' only)
+            auto_mode = p.get("index_type", "auto") == "auto"
+            high_batch_flat = (
+                auto_mode and n_q >= p.get("auto_batch_flat_q", 32)
+                and self._count <= p.get("auto_batch_flat_rows", 2_000_000))
+            if (use_ann and self.config.enable_ann and not ivf_large_k and
+                    not high_batch_flat and not low_sel_filter and
+                    self._ann is not None and not self._ann_stale and
+                    self._count >= min_rows and not self._ann_low_recall):
+                try:
+                    out = self._ann_batch_query(
+                        arr, k_engine, filter_metadata)[:n_q]
+                    return (self._rerank_exact(arr, out, k_eff)
+                            if rerank_active else out)
+                except Exception:  # noqa: BLE001 — as the JAX store: exact
+                    logger.warning("ANN query failed; falling back to the "
+                                   "exact scan", exc_info=True)
 
             t0 = time.perf_counter()
-            mask = self._query_mask(filter_metadata)
+            mask = self._query_mask(filter_metadata, host_mask)
             keys, idx = self._flat_topk(arr, k_engine, mask)
             performance_monitor.record("flat_scan_topk",
                                        time.perf_counter() - t0)
@@ -571,19 +679,265 @@ class TorchVectorStore:
                 [metas[j] for j in order]))
         return out
 
+    # ------------------------------------------------------------------ ANN
+
+    @property
+    def _ann_kind(self) -> str:
+        """'ivf' or 'flat' (no index: the exact scan serves everything).
+        index_type='auto' (the default) resolves from the store size, see
+        _auto_pick_kind."""
+        requested = self.config.ann_params.get("index_type", "auto")
+        if requested != "auto":
+            return requested
+        if self._auto_kind is None:
+            self._auto_kind = self._auto_pick_kind()
+        return self._auto_kind
+
+    def _auto_pick_kind(self) -> str:
+        """Flat below ann_params["auto_flat_rows"] (default 100K rows),
+        IVF above it; int8/int4 stores take IVF's gather layout. Large
+        batches re-route to the exact scan at query time (batch_query)."""
+        flat_rows = self.config.ann_params.get("auto_flat_rows", 100_000)
+        return "flat" if self._count < flat_rows else "ivf"
+
+    def _make_ann(self) -> IVFIndex:
+        p = self.config.ann_params
+        return IVFIndex(
+            dim=self.config.dimension, metric=self.metric,
+            n_clusters=p.get("n_clusters"), nprobe=p.get("nprobe", 32),
+            bucket_rows=p.get("bucket_rows"),
+            train_iters=p.get("train_iters", 10),
+            layout=p.get("ivf_layout", "auto"))
+
+    def _ann_search(self, queries_prepared, fetch_k: int):
+        """The index's (ids, keys) in the store's final key convention
+        (int8's raw x127 scale divided out, as in _flat_topk)."""
+        ids, keys = self._ann.search(
+            queries_prepared, self._db, self._count, k=fetch_k,
+            nprobe=self.config.ann_params.get("nprobe"),
+            sqnorms=self._sqnorms, scales=self._scales)
+        if self.config.storage_dtype == "int8":
+            keys = np.where(np.isfinite(keys), keys * (1.0 / 127.0), keys)
+        return ids, keys
+
+    def _ann_quant_kwargs(self) -> dict:
+        """IVF build/add kwargs for int4 storage: the per-row scales drive
+        the k-means dequantization."""
+        return {"scales": self._scales} if self._quant4 else {}
+
+    def _refresh_ann(self, incremental_from: int | None = None) -> None:
+        """Build, or extend from ``incremental_from``, the ANN index over
+        the store's own device matrix.
+
+        Runs under _ann_build_lock only (never the store lock): queries
+        stay live during a build, routed to the exact scan while
+        _ann_stale. Works from a count snapshot; if rows land mid-build,
+        staleness is restored so the next refresh covers them."""
+        with self._ann_build_lock:
+            count = self._count
+            if count == 0:
+                return
+            if self.config.ann_params.get("index_type", "auto") == "auto":
+                # a store growing past the crossover promotes to IVF (full
+                # build); one shrinking below it demotes to the exact scan
+                new_kind = self._auto_pick_kind()
+                if new_kind != self._auto_kind:
+                    self._auto_kind = new_kind
+                    self._ann = None
+            if self._ann_kind == "flat":
+                self._ann = None
+                self._ann_stale = False
+                return
+            if self._ann is None:
+                self._ann = self._make_ann()
+            if incremental_from in (None, 0) or \
+                    self._ann.size != incremental_from:
+                self._ann.build(self._db, count, sqnorms=self._sqnorms,
+                                **self._ann_quant_kwargs())
+            else:
+                self._ann.add(self._db, incremental_from, count,
+                              sqnorms=self._sqnorms,
+                              **self._ann_quant_kwargs())
+            if self.config.persist_mode != "off":
+                self._ann.save(self.store_path)
+            # re-estimate recall after every full build, and after adds
+            # once the store has doubled since the last estimate; before
+            # the stale flag clears, so no query sees an index that the
+            # remediation is still changing
+            if self._ann_checked_at == 0 or \
+                    count >= 2 * self._ann_checked_at:
+                self._ann_self_check()
+            self._ann_stale = False
+            if self._count != count:
+                self._ann_stale = True
+
+    def _ann_self_check(self, sample: int = 100, k: int = 10) -> None:
+        """Sampled recall@k of the index against the exact scan.
+
+        Self-queries a power-of-two sample of stored rows through both
+        paths; below ``remediate_target`` (default 0.98) IVF doubles
+        nprobe until it clears (_remediate_low_recall); below
+        ``recall_warn`` (0.90) it warns; below ``recall_floor`` (0.50)
+        queries route to the exact scan. A hit is an id in the exact
+        top-k, or a key that ties the exact k-th within 0.004 (bf16
+        ties make the id set an arbitrary tie-break)."""
+        p = self.config.ann_params
+        if not p.get("self_check", True) or self._count < 2 \
+                or self._ann is None:
+            return
+        n = 1 << (min(sample, self._count).bit_length() - 1)
+        k_eff = min(k, self._count)
+        rng = np.random.default_rng(0)
+        rows = np.sort(rng.choice(self._count, size=n, replace=False))
+        queries = self._host_buf[rows].astype(np.float32)
+        flat_keys, flat_idx = self._flat_topk(queries, k_eff, None)
+        kth = np.asarray(flat_keys, np.float32)[:, k_eff - 1]
+        tol = 0.004 * np.maximum(1.0, np.abs(kth))
+        exact_sets = [{int(x) for x in flat_idx[i]} for i in range(n)]
+        prepared = self._prepare_queries(queries)
+
+        def estimate() -> float:
+            labels, ann_keys = self._ann_search(prepared, k_eff)
+            ann_keys = np.asarray(ann_keys, np.float32)
+            hits = 0
+            for i in range(n):
+                for j in range(k_eff):
+                    lab = int(labels[i, j])
+                    if lab < 0:
+                        continue
+                    if lab in exact_sets[i] \
+                            or ann_keys[i, j] >= kth[i] - tol[i]:
+                        hits += 1
+            return hits / float(n * k_eff)
+
+        est = estimate()
+        warn = p.get("recall_warn", 0.90)
+        target = p.get("remediate_target", 0.98)
+        if est < target and p.get("auto_remediate", True):
+            est = self._remediate_low_recall(est, target, estimate)
+        self._ann_recall_estimate = est
+        self._ann_checked_at = self._count
+        floor = p.get("recall_floor", 0.50)
+        was_low = self._ann_low_recall
+        self._ann_low_recall = est < floor
+        if self._ann_low_recall:
+            logger.warning(
+                "ANN sampled recall@%d = %.3f < floor %.2f at %d rows; "
+                "routing queries to the exact scan", k_eff, est, floor,
+                self._count)
+        elif est < warn:
+            logger.warning(
+                "ANN sampled recall@%d = %.3f below %.2f at %d rows",
+                k_eff, est, warn, self._count)
+        elif was_low:
+            logger.info("ANN sampled recall recovered to %.3f; "
+                        "index re-enabled", est)
+
+    def _remediate_low_recall(self, est: float, target: float,
+                              estimate) -> float:
+        """IVF recall is probe coverage: double nprobe (re-estimating
+        after each step) until the estimate clears ``target`` or nprobe
+        reaches ``remediate_nprobe_max`` (default: the built cluster
+        count). The new nprobe is written back to ann_params (so it
+        persists in the manifest) and to the sidecar."""
+        p = self.config.ann_params
+        start = int(p.get("nprobe", self._ann.nprobe))
+        cents = self._ann._centroids
+        built_clusters = 0 if cents is None else len(cents)
+        cap = int(p.get("remediate_nprobe_max",
+                        built_clusters or max(256, start * 8)))
+        nprobe = start
+        changed = False
+        while est < target and nprobe < cap:
+            nprobe = min(nprobe * 2, cap)
+            self._ann.nprobe = nprobe
+            p["nprobe"] = nprobe
+            changed = True
+            est = estimate()
+            logger.warning("ANN recall remediation: nprobe %d -> %d, "
+                           "sampled recall %.3f", start, nprobe, est)
+        if changed and self.config.persist_mode != "off":
+            self._ann.save(self.store_path)
+        return est
+
+    def _prepare_queries(self, arr: np.ndarray) -> torch.Tensor:
+        """Host queries as the index scores them: on the device,
+        normalized for cosine, padded to the stored width."""
+        q = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+            self.device)
+        if self.metric == "cosine":
+            q = D.l2_normalize(q)
+        return D.pad_dim(q, multiple=self._pad_to)
+
+    def _post_filter_fetch_k(self, k: int, filtered: bool) -> int:
+        """ANN fetch size under post-filtering: k*10, scaled up as the
+        live fraction f drops (~1/f, capped at 10x the base)."""
+        if not (filtered or self._deleted):
+            return k
+        live_frac = ((self._count - len(self._deleted))
+                     / max(self._count, 1))
+        return int(min(self._count,
+                       math.ceil(k * 10 / max(live_frac, 0.1))))
+
+    def _ann_batch_query(self, arr: np.ndarray, k: int,
+                         filter_metadata: dict | None):
+        """One index search for the batch, then post-filtering of
+        tombstones and metadata filters on the host."""
+        fetch_k = self._post_filter_fetch_k(k, bool(filter_metadata))
+        labels, keys = self._ann_search(self._prepare_queries(arr), fetch_k)
+        out = []
+        for row_labels, row_keys in zip(labels, keys):
+            indices, scores, metas = [], [], []
+            for i, key in zip(row_labels, row_keys):
+                i = int(i)
+                if i < 0 or len(indices) >= k or i in self._deleted:
+                    continue
+                meta = self._metadata[i]
+                if filter_metadata and not metadata_matches(
+                        meta, filter_metadata):
+                    continue
+                if self.metric == "euclidean":
+                    raw = float(np.sqrt(max(-key, 0.0)))
+                elif self.metric == "cosine":
+                    raw = float(np.clip(key, -1.0, 1.0))
+                else:
+                    raw = float(key)
+                indices.append(i)
+                scores.append(raw)
+                metas.append(meta)
+            out.append((indices, scores, metas))
+        return out
+
+    def _load_ann_sidecar(self, n: int) -> None:
+        """Open the persisted index when it covers the store's rows, else
+        rebuild it."""
+        if self._ann_kind == "flat":   # auto below the crossover
+            self._ann_stale = False
+            return
+        self._ann = self._make_ann()
+        if self._ann.load(self.store_path) and self._ann.size == n:
+            self._ann_stale = False
+        else:
+            self._refresh_ann()
+
     # ------------------------------------------------------------- lifecycle
 
     def optimize(self) -> dict:
-        """Compact tombstones and re-pack the device buffers to minimal
-        capacity. Compaction REMAPS row ids (see compact())."""
+        """Compact tombstones, re-pack the device buffers to minimal
+        capacity and rebuild the ANN index. Compaction REMAPS row ids (see
+        compact())."""
         compacted = 0
         if self._deleted:
-            compacted = self.compact(want_remap=False)["compacted"]
+            # one index rebuild, below, instead of one in compact too
+            compacted = self.compact(rebuild_ann=False,
+                                     want_remap=False)["compacted"]
         t0 = time.perf_counter()
         with self._lock, self._rw.write():
             target = self._capacity_for(max(self._count, 1))
             if target != self._cap and self._count:
                 self._reset_device(target)
+            if self.config.enable_ann and self._count:
+                self._refresh_ann()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return {"optimized": True, "capacity": self._cap,
@@ -591,16 +945,20 @@ class TorchVectorStore:
                 "duration_ms": (time.perf_counter() - t0) * 1e3}
 
     def warmup(self, batch: int = 8, k: int = 10) -> dict:
-        """Run the query path once per batch shape ahead of traffic (on a
-        CUDA store the first call also builds the scan kernel)."""
+        """Run the query paths once ahead of traffic: the exact scan at
+        both batch shapes and, with an index, one ANN query (on a CUDA
+        store the first calls also build the kernels)."""
         with self._lock:
             if self._count == 0:
                 return {"warmed": False, "reason": "empty store"}
             t0 = time.perf_counter()
             dummy = np.zeros((batch, self.config.dimension), np.float32)
             dummy[:, 0] = 1.0
-            self.batch_query(dummy, k=min(k, self._count))
-            self.batch_query(dummy[:1], k=min(k, self._count))
+            self.batch_query(dummy, k=min(k, self._count), use_ann=False)
+            self.batch_query(dummy[:1], k=min(k, self._count),
+                             use_ann=False)
+            if self.config.enable_ann and self._ann is not None:
+                self.batch_query(dummy[:1], k=min(k, self._count))
             return {"warmed": True,
                     "duration_ms": (time.perf_counter() - t0) * 1e3}
 
@@ -648,6 +1006,8 @@ class TorchVectorStore:
                 logger.exception("corrupt tombstones at %s; ignoring", tpath)
                 self._deleted = set()
         self._reset_device(self._capacity_for(n))
+        if self.config.enable_ann:
+            self._load_ann_sidecar(n)
 
     def get_vectors(self, indices: list[int] | None = None) -> np.ndarray:
         """Fetch rows by id (all LIVE rows when indices is None).
@@ -689,12 +1049,14 @@ class TorchVectorStore:
                 "deleted_count": len(self._deleted),
                 "dimension": self.config.dimension,
                 "metric": self.metric,
-                "index_type": "flat",
+                "index_type": (self._ann_kind if (self.config.enable_ann
+                                                  and self._ann is not None)
+                               else "flat"),
                 "index_type_requested": self.config.ann_params.get(
                     "index_type", "auto"),
                 "storage_dtype": self.config.storage_dtype,
                 "device_capacity": self._cap,
-                "ann_recall_estimate": None,
+                "ann_recall_estimate": self._ann_recall_estimate,
                 "memory_usage_mb": round(device_mb + host_mb, 3),
             }
 
