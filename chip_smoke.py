@@ -7,11 +7,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    builds the kernels of ``tpu_vector_db_torch/csrc`` with nvcc, one
    nvcc per source, all at once;
 2. holds each flat-scan kernel against its plain torch version on the
-   card at 1M x 768 rows (f32, bf16, int8, int4; batch 1 and 64; a
-   filtered case, a case with count < N, a euclidean case; big-k cases
-   past the TPU kernel's k = 1024, up to k = 20000) and times the kernel,
-   the plain version and ``torch.matmul`` + ``torch.topk`` (a yardstick
-   only: the port never calls it);
+   card at 1M x 768 rows (f32, bf16, int8, int4; top-10 at batch 1, 16,
+   64 and 100, top-100 at batch 1 and 64; a filtered case, a case with
+   count < N, a euclidean case; big-k cases past the TPU kernel's
+   k = 1024, up to k = 20000) and times the kernel, the plain version and
+   ``torch.matmul`` + ``torch.topk`` (a yardstick only: the port never
+   calls it); each line names the design that ran (``scan_kernel``: the
+   row loop or the tile). Then both designs of ``scan_kernel`` at batch
+   2-16 of every type, held and timed (the "crossover" lines the
+   wrapper's ``TILE_MIN_Q`` is set from);
 3. holds the IVF probe kernel against its plain version on 2048 buckets
    of 1024 x 768 rows (f32 and bf16; batch 1, 8, 64; nprobe 32, 64 and
    every bucket; k 10 and 32; partly filled buckets) and times the
@@ -224,13 +228,15 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
              "int4": unpack_int4(packed, scales).to(torch.bfloat16)}
     sqn = torch.sum(x * x, dim=1)
     mask = (torch.rand(n, generator=g, device=dev) < 0.1).float()
-    queries = torch.randn((64, d), generator=g, device=dev)
+    queries = torch.randn((100, d), generator=g, device=dev)
     queries /= torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     cases = []
     for k in (10, 100):
         for dtype in ("float32", "bfloat16", "int8", "int4"):
-            for q_n in (1, 64):
+            # batch 16 and 100: the smallest tile and a ragged second tile
+            for q_n in ((1, 16, 64, 100) if k == 10 else (1, 64)):
                 cases.append((dtype, q_n, k, "cosine", None, n))
         cases.append(("float32", 64, k, "cosine", "filtered", n))
         cases.append(("float32", 64, k, "cosine", None, n - 12345))
@@ -248,6 +254,9 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         sq = sqn if metric == "euclidean" else None
         fm = mask if flt else None
         name = cuda_scan.kernel_name(k)
+        d_pad = db.shape[1] * (2 if dtype == "int4" else 1)
+        design = cuda_scan._launch_plan(q_n, db.dtype, d_pad, k, count,
+                                        n_sm).design
         kwargs = dict(metric=metric, db_sqnorms=sq, filter_mask=fm,
                       db_scales=scl)
         before = LAUNCHES[name]
@@ -270,8 +279,9 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         side = count * 4 * ((flt is not None) + (metric == "euclidean")
                             + (dtype == "int4"))
         bound_ms, bound_by = bound(rows, row_bytes, q_n, d, k, dtype, side)
-        line = {"phase": "kernel", "kernel": name, "dtype": dtype,
-                "metric": metric, "filtered": bool(flt), "Q": q_n, "k": k,
+        line = {"phase": "kernel", "kernel": name, "design": design,
+                "dtype": dtype, "metric": metric, "filtered": bool(flt),
+                "Q": q_n, "k": k,
                 "N": n, "count": count, "d": d,
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
@@ -284,13 +294,48 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         errs[name] = max(errs.get(name, 0.0), err)
         if (dtype, q_n, k) == HEADLINE[name] and metric == "cosine" \
                 and flt is None and count == n:
-            headline[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=library_ms)
+            headline[name] = dict(design=design, ms=kernel_ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=library_ms)
+    crossover(dbs, queries, n, d, n_sm)
     del dbs, dense, x, packed, scales, sqn, mask
     gc.collect()
     torch.cuda.empty_cache()
     return headline, errs
+
+
+def crossover(dbs: dict, queries, n: int, d: int, n_sm: int) -> None:
+    """Both designs of scan_kernel at the batches around the wrapper's
+    TILE_MIN_Q, top-10 over the N x d rows of every type: the
+    measurement the crossovers are set from. Each design is held against
+    the plain version once and timed in turns (loop, tile, tile, loop)."""
+    from tpu_vector_db_torch.ops import cuda_scan
+    for dtype, (db, scl) in dbs.items():
+        d_pad = db.shape[1] * (2 if dtype == "int4" else 1)
+        for q_n in (2, 4, 8, 12, 16):
+            q = queries[:q_n]
+            plain = cuda_scan.flat_topk_plain(q, db, n, 10, db_scales=scl)
+            runs = {}
+            for design in ("loop", "tile"):
+                plan = cuda_scan._plan(design, q_n, db.dtype, d_pad, 10, n,
+                                       n_sm)
+
+                def run(plan=plan):
+                    return cuda_scan._finish(*cuda_scan._launch(
+                        q, db, d_pad, n, 10, "cosine", None, None, scl,
+                        plan), q, "cosine")
+                err, keys_ok, ids_ok = compare(*run(), *plain, "cosine")
+                check(keys_ok and ids_ok, f"scan_kernel {design} {dtype} "
+                      f"Q={q_n}: disagrees with its plain version ({err})")
+                runs[design] = run
+            ms = {name: [] for name in runs}
+            for name in ("loop", "tile", "tile", "loop"):
+                ms[name].append(cuda_ms(runs[name], 10))
+            emit({"phase": "crossover", "kernel": "scan_kernel",
+                  "dtype": dtype, "Q": q_n, "k": 10, "N": n, "d": d,
+                  "loop_ms": min(ms["loop"]), "tile_ms": min(ms["tile"]),
+                  "picked": cuda_scan._launch_plan(
+                      q_n, db.dtype, d_pad, 10, n, n_sm).design})
 
 
 def unit_(t):
@@ -430,13 +475,19 @@ def hold_store(store, path: str, queries: np.ndarray, k: int, errs: dict,
                filter_metadata: dict | None = None) -> None:
     """Kernel against plain version on the store's own scan inputs (rows,
     sqnorms, scales, live or filter mask) at this path's batch and k."""
+    import torch
     from tpu_vector_db_torch.ops import cuda_scan
     args = store._scan_inputs(queries, store._query_mask(filter_metadata))
     keys, ids = cuda_scan.flat_topk(k=k, **args)
     pkeys, pids = cuda_scan.flat_topk_plain(k=k, **args)
     err, keys_ok, ids_ok = compare(keys, ids, pkeys, pids, store.metric)
     name = cuda_scan.kernel_name(k)
-    emit({"phase": "hold", "path": path, "kernel": name,
+    db = args["db"]
+    design = cuda_scan._launch_plan(
+        len(queries), db.dtype, args["queries"].shape[1], k, store._count,
+        torch.cuda.get_device_properties(db.device).multi_processor_count
+    ).design
+    emit({"phase": "hold", "path": path, "kernel": name, "design": design,
           "dtype": store.config.storage_dtype, "metric": store.metric,
           "filtered": bool(filter_metadata), "Q": len(queries), "k": k,
           "count": store._count, "d": store.config.dimension,
@@ -871,7 +922,8 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
     for q_n in (1, 8, 64):
         out = hold_index(store, "ivf", qs[:q_n], 10, errs, timed=q_n == 1)
         if q_n == 1:
-            headline = dict(ms=out["kernel_ms"], plain_ms=out["plain_ms"],
+            headline = dict(design="probe", ms=out["kernel_ms"],
+                            plain_ms=out["plain_ms"],
                             bound_ms=out["bound_ms"],
                             bound_by=out["bound_by"], library_ms=None,
                             yardstick_ms=out["yardstick_ms"],

@@ -209,7 +209,17 @@ def test_ties_break_by_lower_id():
 
 def test_adversarial_order_big_k():
     """All true winners packed into one region in descending strength
-    (tests/test_ops.py's adversarial case) through the big-k contract."""
+    (tests/test_ops.py's adversarial case) through the big-k contract.
+
+    Each euclidean key is ``2q.x - ||x||^2 - ||q||^2``: terms of the size
+    of ||q||^2 (~119 here) that cancel, exactly so for row 256 + 99
+    (which is q itself, true key 0). Summed in another order, f32 leaves
+    noise of that scale behind, so keys are compared with an absolute
+    tolerance of KEY_TOL * d, as ``test_plain_matches_pallas`` does for
+    euclidean keys, and not relatively. Rows 256 + 99 +- m tie exactly and
+    the 0.01-noise rows all sit near -||q||^2, so ids are compared away
+    from near-ties and every selected row must reach the f32 ground
+    truth's k-th best."""
     rng = np.random.default_rng(5)
     n, d, k = 2048, 128, 64
     x = rng.standard_normal((n, d)).astype(np.float32) * 0.01
@@ -219,8 +229,11 @@ def test_adversarial_order_big_k():
     sq = np.sum(x * x, axis=1)
     want = _jax(x, q, n, k, "euclidean", "float32", sq, None, None)
     got = _torch(x, q, n, k, "euclidean", "float32", sq, None, None)
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
-    np.testing.assert_array_equal(got[1], want[1])
+    gt = _ground_truth(x, q, "float32", None, "euclidean", n, None, sq,
+                       np.sum(q * q, axis=1))
+    assert_same_topk(got, want, gt, k, key_tol=KEY_TOL * d)
+    # the winner, q itself, and its exact ties come first, in id order
+    assert got[1][0, 0] == 256 + 99
 
 
 def test_int4_plain_keys_are_dequantized_scores():
@@ -289,16 +302,18 @@ def test_kernel_matches_plain_on_card(dtype, k):
     scl = None if scales is None else torch.from_numpy(scales).cuda()
     mask = torch.from_numpy(
         (np.random.default_rng(2).random(20000) < 0.5).astype(np.float32))
-    for fm in (None, mask.cuda()):
-        qt = torch.from_numpy(q).cuda()
+    # batch 1 takes the row loop for every type, batch 5 the tile for the
+    # tensor-core types (TILE_MIN_Q)
+    for fm, q_n in ((None, 5), (mask.cuda(), 5), (mask.cuda(), 1)):
+        qt = torch.from_numpy(q[:q_n]).cuda()
         got = flat_topk(qt, db, 19000, k, db_scales=scl, filter_mask=fm)
         want = flat_topk_plain(qt, db, 19000, k, db_scales=scl,
                                filter_mask=fm)
         torch.cuda.synchronize()
-        gk, wk = got[0].cpu().numpy(), want[0].cpu().numpy()
-        np.testing.assert_allclose(gk, wk, atol=KEY_TOL)
-        np.testing.assert_array_equal(got[1].cpu().numpy(),
-                                      want[1].cpu().numpy())
+        # ids equal away from near-ties: sums in another order can swap
+        # two rows whose keys are within the tolerance
+        assert_close_topk([t.cpu().numpy() for t in got],
+                          [t.cpu().numpy() for t in want], KEY_TOL)
 
 
 @pytest.mark.gpu
@@ -308,6 +323,9 @@ def test_kernel_matches_plain_on_card(dtype, k):
     ("cosine", 2, 0, 10),            # no live row
     ("euclidean", 17, 30000, 1),     # k = 1, a ragged query tile
     ("dot_product", 9, 30000, 1024),  # the largest k
+    ("cosine", 64, 5, 10),           # tile: fewer live rows than k
+    ("cosine", 16, 0, 10),           # tile: no live row
+    ("cosine", 100, 30000, 32),      # tile: k = 32, two query tiles
 ])
 def test_kernel_edge_shapes_on_card(metric, q_n, count, k):
     """Edge shapes of the CUDA kernel against its plain version: slots past
@@ -327,3 +345,127 @@ def test_kernel_edge_shapes_on_card(metric, q_n, count, k):
     assert np.all(got[1][~fin] == 0)
     # un-normalized rows: keys are O(d), so is their f32 rounding
     assert_close_topk(got, want, KEY_TOL * (1 if metric == "cosine" else d))
+
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8, "int4": torch.uint8}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("q_n", [1, 8, 16, 64, 100])
+def test_launch_plan(q_n, dtype):
+    """The wrapper's choice of design: the row loop below TILE_MIN_Q
+    queries of the row type (batch 1 always), the tile from it (f32 in
+    tiles of 16/32/64 queries, the tensor-core types in tiles of 64), each
+    block of a tile launch writing one candidate list per query, and
+    splits that cover the rows once."""
+    tdt = TORCH_DTYPES[dtype]
+    count, n_sm = 1_000_000, 132
+    plan = cuda_scan._launch_plan(q_n, tdt, 768, 10, count, n_sm)
+    tiles = -(-q_n // plan.qt)
+    assert plan.splits * plan.rows_per_split >= count
+    assert (plan.splits - 1) * plan.rows_per_split < count
+    assert cuda_scan.TILE_MIN_Q[tdt] > 1
+    if q_n < cuda_scan.TILE_MIN_Q[tdt]:
+        assert plan.design == "loop"
+        assert plan.qt == min(8, max(1, 1 << (2 * q_n - 1).bit_length() - 1))
+        # each warp of a block keeps its own list per query
+        assert plan.n_lists == plan.splits * 8
+    else:
+        assert plan.design == "tile"
+        want_qt = (64 if dtype != "float32"
+                   else {16: 16, 64: 64, 100: 64}[q_n])
+        # the f32 tile takes over where the loop would read the rows twice
+        assert dtype != "float32" or q_n > 8
+        assert plan.qt == want_qt
+        assert plan.rows_per_split % 256 == 0   # whole row tiles
+        # one block per SM: the query tiles times the splits fill the card
+        # (less the splits that rounding to whole row tiles takes away)
+        assert n_sm - 2 * tiles < tiles * plan.splits <= n_sm
+        assert plan.n_lists == plan.splits
+    # k > 32 takes the big-k kernel at every batch
+    assert cuda_scan._launch_plan(q_n, tdt, 768, 100, count,
+                                  n_sm).design == "big"
+
+
+@pytest.mark.parametrize("count", [0, 5, 300, 20000])
+def test_launch_plan_small_counts(count):
+    """Ragged and empty counts still launch at least one block whose
+    splits cover the rows once."""
+    plan = cuda_scan._launch_plan(64, torch.float32, 256, 10, count)
+    assert plan.design == "tile" and plan.splits >= 1
+    assert plan.splits * plan.rows_per_split >= count
+    assert (plan.splits - 1) * plan.rows_per_split < max(count, 1)
+
+
+def _card_db(x, dtype):
+    db = torch.from_numpy(x).cuda()
+    return db.to(torch.bfloat16) if dtype == "bfloat16" else db
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+@pytest.mark.parametrize("q_n", [16, 64, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
+def test_tile_matches_plain_on_card(dtype, q_n, metric):
+    """The tile design (scan_small_k_tile) against the plain version on
+    the card, unmasked and masked, at a count that ends inside a row tile
+    and a split. Unit rows and queries: keys are O(1), so KEY_TOL holds
+    for f32 sums in another order (tensor cores sum bf16 products, exact
+    in f32, in their own order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, d, count = 20000, 256, 19000 - 7
+    x, q, _, scales = _inputs(11, n, d, q_n, "cosine", dtype)
+    db = _card_db(x, dtype)
+    assert cuda_scan._launch_plan(q_n, db.dtype, d, 10, count).design \
+        == "tile"
+    scl = None if scales is None else torch.from_numpy(scales).cuda()
+    sq = None
+    if metric == "euclidean":
+        sq = torch.from_numpy(np.random.default_rng(3).uniform(
+            0.5, 1.5, n).astype(np.float32)).cuda()
+    mask = torch.from_numpy(
+        (np.random.default_rng(2).random(n) < 0.5).astype(np.float32))
+    qt = torch.from_numpy(q).cuda()
+    for fm in (None, mask.cuda()):
+        kw = dict(metric=metric, db_sqnorms=sq, filter_mask=fm,
+                  db_scales=scl)
+        got = flat_topk(qt, db, count, 10, **kw)
+        want = flat_topk_plain(qt, db, count, 10, **kw)
+        torch.cuda.synchronize()
+        got = [t.cpu().numpy() for t in got]
+        assert_close_topk(got, [t.cpu().numpy() for t in want], KEY_TOL)
+        assert np.all(got[1] < count)
+        if fm is not None:
+            assert np.all(mask.numpy()[got[1]] > 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_tile_ties_across_tiles_and_splits_on_card(dtype):
+    """Identical rows inside one row tile, across a row-tile boundary and
+    across a split boundary come back lower id first. Small integers:
+    every sum is exact in f32 and every value in bf16, so the ties are
+    exact on every path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n, d, q_n = n_sm * 512, 64, 16
+    plan = cuda_scan._launch_plan(q_n, TORCH_DTYPES[dtype], d, 10, n, n_sm)
+    rps = plan.rows_per_split
+    assert plan.design == "tile" and rps % 256 == 0 and plan.splits > 1
+    rng = np.random.default_rng(12)
+    x = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    src = 1000
+    ties = sorted({3, 4, 255, 256, rps - 1, rps, rps + 1, n - 1, src})
+    x[ties] = x[src]
+    x = x.astype(np.int8) if dtype == "int8" else x
+    q = np.repeat(x[src:src + 1].astype(np.float32) * 2.0, q_n, axis=0)
+    keys, ids = flat_topk(torch.from_numpy(q).cuda(), _card_db(x, dtype), n,
+                          10, metric="dot_product")
+    ids = ids.cpu().numpy()
+    assert np.all(ids[:, :len(ties)] == np.array(ties)[None, :]), ids[0]
+    assert np.all(keys.cpu().numpy()[:, :len(ties)]
+                  == 2.0 * np.sum(x[src].astype(np.float32) ** 2))

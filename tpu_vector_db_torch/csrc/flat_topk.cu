@@ -3,53 +3,85 @@
 //
 // Replaces the two TPU kernels behind one Pallas call site,
 // tpu_vector_db/ops/pallas_scan.py:
-//   _scan_kernel       (k <= 32) -> scan_small_k + merge_topk_kernel
-//   _scan_kernel_bigk  (k > 32)  -> scan_big_k   + merge_topk_kernel
+//   _scan_kernel       (k <= 32) -> scan_small_k (small Q) or
+//                                   scan_small_k_tile (larger Q),
+//                                   then merge_topk_kernel
+//   _scan_kernel_bigk  (k > 32)  -> scan_big_k + merge_topk_kernel
 // The TPU big-k kernel stops at k = 1024; this one takes any k, so the
 // store serves every k the JAX store serves (its XLA scan takes k > 1024).
+// The wrapper (ops/cuda_scan.py::_launch_plan) picks the design from Q, k
+// and the row type.
 //
-// What bounds it on this card. At batch 1 every stored byte is read once
-// for 2*d flops per row: far below the card's ratio of flops to bytes, so
-// the scan is bound by device-memory bytes (1M x 768 f32 = 3.1 GB, about
-// 0.94 ms at 3.35 TB/s). At batch 64 the f32 case needs 2*64*N*d flops on
-// the CUDA cores (67 TFLOP/s), about as long as the bytes; bf16/int8/int4
-// rows would be bytes-bound again on tensor cores, which this first
-// version does not use.
+// What bounds it on this card, at 1M x 768 rows:
+//  * Q = 1: every stored byte is read once for 2*d operations per row,
+//    far below the card's ratio of operations to bytes: bytes bound every
+//    type (f32 3.1 GB, about 0.92 ms at 3.35 TB/s; bf16 0.46 ms; int8
+//    0.23 ms; int4 0.12 ms).
+//  * Q = 64: f32 needs 2*64*N*d = 98 GFLOP on the CUDA cores (67 TFLOP/s):
+//    1.47 ms, bound by operations, just above its 0.92 ms of bytes. bf16,
+//    int8 and int4 take the same 98 GFLOP on the tensor cores (989
+//    TFLOP/s, 0.1 ms) and stay bound by their bytes.
 //
 // What the design does about it:
-//  * The TPU walks row blocks in sequence and carries its top-k across grid
-//    steps. Here blocks run in parallel with no carry: a grid of
+//  * Blocks run in parallel with no carry (the TPU walks row blocks in
+//    sequence and carries its top-k across grid steps): a grid of
 //    (query tile x row split), each block scanning its own contiguous row
 //    range, then a second launch merges the splits' candidates.
-//  * One warp scores one row at a time: each lane loads 16-byte chunks of
-//    the row (coalesced across the warp, up to 8 loads in flight per lane),
-//    widens f32/bf16/int8/int4 to f32 and accumulates the dot products with
-//    up to QT queries held in shared memory; a butterfly of shuffles gives
-//    every lane the row's QT scores. Rows past `count` are never read, and
-//    rows the filter mask drops are skipped before their bytes are loaded.
-//  * The TPU kernel's threshold skip is kept: a row that does not beat a
-//    query's current k-th best is dropped at once, so after the first rows
-//    almost no row costs more than its dot product.
-//  * k <= 32: each warp keeps one sorted list per query in registers (lane
-//    j holds the j-th best), updated by a ballot + shuffle insert.
-//  * k > 32: each query has a region of 2*KB slots, KB = next_pow2(k) (at
-//    least 1024): the sorted best KB and a candidate area that rows above
-//    the threshold append to. When the area may overflow, a bitonic sort of
-//    the region restores the sorted best and raises the threshold. Up to
-//    KB = 8192 (128 KB a query) the region is in shared memory; past it, in
-//    device-memory scratch the wrapper allocates, and the wrapper gives
-//    each split at least 4*k rows so that few candidates reach the merge.
+//  * small Q (scan_small_k, bytes bound): one warp scores one row at a time
+//    against up to 8 queries in shared memory. Each lane loads 16-byte
+//    chunks of the row (coalesced, up to 8 in flight per lane) and widens
+//    them to f32; a butterfly of shuffles gives every lane the row's keys.
+//    Rows past `count` are never read, and rows the filter mask drops are
+//    skipped before their bytes are loaded.
+//  * larger Q (scan_small_k_tile): a block holds a tile of up to 64 queries
+//    and walks its split in tiles of 256 rows, so each stored byte leaves
+//    device memory once per 64 queries, not once per 8. Row and query
+//    chunks (128 bytes of an f32 or bf16 row, 64 or 32 of an int8 or int4
+//    one) are staged into shared memory by cp.async, 3 to 6 stages deep
+//    across tile boundaries, rows padded by 16 bytes so that neither the
+//    f32 loads nor ldmatrix meet bank conflicts; rows past the split are
+//    zero-filled and never selected. The chunk is as wide as shared
+//    memory allows: the copies cost a fixed time per stage (256 row
+//    pieces), whatever their bytes, so fewer and wider stages run faster.
+//      - f32: register-tiled FFMA. Each thread keeps 8 rows x up to 8
+//        queries of f32 sums and reads both operands as float4 fragments,
+//        so each shared-memory load feeds 8 to 32 FMAs (sums stay f32).
+//      - bf16, int8, int4: mma.sync m16n8k16 bf16 -> f32 on the tensor
+//        cores, rows on the M side and the bf16-rounded queries on the N
+//        side, fragments by ldmatrix. int8 (-127..127) and int4 nibbles
+//        (0..15) are exact in bf16: they stay packed in shared memory
+//        (half or a quarter of the bytes) and are widened in registers
+//        once per row, by the one warp that owns the row. int4 byte j
+//        holds component j (low nibble) and j + d/2 (high), so a stage's
+//        low nibbles meet q[:, :d/2] and its high nibbles q[:, d/2:].
+//    After the last chunk of a row tile each thread writes its keys
+//    (euclidean 2s - |x|^2, int4 (s - 8 sum q) * scale, -inf for masked
+//    rows and rows past the split) to shared memory, and each warp walks
+//    the tile's keys of its queries in rising row order, 32 at a time:
+//    a ballot against the query's k-th best (the TPU kernel's threshold
+//    skip) and an insert for each passing row. The lists stay in
+//    registers across tiles; the block writes one list per query.
+//  * k > 32 (scan_big_k): as scan_small_k, but each query has a region of
+//    2*KB slots, KB = next_pow2(k) (at least 1024): the sorted best KB and
+//    a candidate area that rows above the threshold append to. When the
+//    area may overflow, a bitonic sort of the region restores the sorted
+//    best and raises the threshold. Up to KB = 8192 (128 KB a query) the
+//    region is in shared memory; past it, in device-memory scratch the
+//    wrapper allocates, and the wrapper gives each split at least 4*k rows
+//    so that few candidates reach the merge.
 //  * The merge keeps the sorted best next_pow2(k) plus an equal candidate
 //    area (at least 4096 slots), in shared memory up to 16384 slots and in
 //    device-memory scratch past that (topk_common.cuh).
 //  * Order is key descending, then id ascending, everywhere. The TPU
 //    kernel's first-occurrence rule gives exactly this because its ids rise
 //    in scan order; with the explicit rule the result does not depend on
-//    the split count.
+//    the split count or the design.
 //
 // C interface, loaded with ctypes: vdb_flat_topk returns cudaGetLastError()
 // after its launches (or cudaErrorInvalidValue for arguments it refuses).
 // It allocates nothing: the caller passes outputs and candidate scratch.
+
+#include <type_traits>
 
 #include "topk_common.cuh"
 
@@ -62,6 +94,7 @@
 
 struct ScanArgs {
   const float* q;
+  const uint16_t* q16;  // the same queries as bf16 (tile design, lossy rows)
   int Q, d_pad;
   const uint8_t* db;
   int row_bytes, count;
@@ -145,6 +178,392 @@ __global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
       const size_t o = ((size_t)(q0 + t) * n_lists + slot) * k + lane;
       a.cand_keys[o] = val[t];
       a.cand_ids[o] = id[t];
+    }
+  }
+}
+
+// ---- k <= 32, larger Q: the tile design ----
+//
+// A block of 8 warps scores a tile of QT queries against its split's rows,
+// TILE_ROWS at a time, in chunks of each row: 32 f32 or 64 bf16 components
+// (128 bytes), 64 int8 bytes, or 32 int4 bytes (64 components). Shared
+// memory: a ring of tile_stages slots of [QT query rows | TILE_ROWS stored
+// rows], the tile's keys (QT x KEY_STRIDE f32) and per query 8 * sum(q)
+// (int4).
+
+#define TILE_ROWS 256
+#define STAGE_ROW 144                 // bytes of a staged row: 128 + 16 of pad
+#define KEY_STRIDE (TILE_ROWS + 4)    // floats of a query's keys in a tile
+
+// bytes of one stored row that one stage copies
+template <int DT>
+__host__ __device__ constexpr int stage_row_bytes() {
+  return DT == DT_I8 ? 64 : DT == DT_I4 ? 32 : 128;
+}
+template <int DT>
+__host__ __device__ constexpr bool widens() { return DT == DT_I8 || DT == DT_I4; }
+// Row strides in a ring slot, padded by 16 bytes so that the 8 rows of an
+// ldmatrix (or the 8 lanes of an f32 LDS.128) meet 8 distinct bank
+// groups. Queries of the widened types have 160 so that a half-warp's
+// 8-byte B-fragment loads (4 queries x 4 lanes) do too.
+template <int DT>
+__host__ __device__ constexpr int ring_row_bytes() { return stage_row_bytes<DT>() + 16; }
+template <int DT>
+__host__ __device__ constexpr int query_row_bytes() { return widens<DT>() ? 160 : STAGE_ROW; }
+// stored components a stage covers (int4: 32 bytes = 32 low + 32 high)
+template <int DT>
+__host__ __device__ constexpr int stage_comps() { return DT == DT_F32 ? 32 : 64; }
+
+template <int DT, int QT>
+__host__ __device__ constexpr int slot_bytes() {
+  return QT * query_row_bytes<DT>() + TILE_ROWS * ring_row_bytes<DT>();
+}
+// the tile's keys and 8 * sum(q)
+template <int QT>
+__host__ __device__ constexpr size_t key_bytes() { return (size_t)QT * (KEY_STRIDE + 1) * 4; }
+// ring depth: as deep as shared memory allows beside the keys, up to 6
+template <int DT, int QT>
+__host__ __device__ constexpr int tile_stages() {
+  return (MAX_SMEM - key_bytes<QT>()) / slot_bytes<DT, QT>() < 6
+             ? (int)((MAX_SMEM - key_bytes<QT>()) / slot_bytes<DT, QT>())
+             : 6;
+}
+
+template <int DT, int QT>
+__host__ __device__ constexpr size_t tile_smem_bytes() {
+  return (size_t)tile_stages<DT, QT>() * slot_bytes<DT, QT>() + key_bytes<QT>();
+}
+
+// Start the copies of pipeline step s (row tile s / n_chunks, chunk
+// s % n_chunks) into a ring slot. Queries past Q and rows at or past r1
+// are zero-filled without a read.
+template <int DT, int QT>
+__device__ __forceinline__ void tile_copy(const ScanArgs& a, int q0, int r0, int r1,
+                                           int n_chunks, int s, uint8_t* slot) {
+  const int t = s / n_chunks, c = s - t * n_chunks;
+  for (int i = threadIdx.x; i < QT * 8; i += THREADS) {
+    const int qi = i >> 3, part = i & 7;
+    const bool ok = q0 + qi < a.Q;
+    const size_t qrow = (size_t)(ok ? q0 + qi : 0) * a.d_pad;
+    const void* src;
+    if (DT == DT_F32) {
+      src = a.q + qrow + c * 32 + part * 4;
+    } else if (DT == DT_I4) {  // low components of the chunk, then high
+      src = a.q16 + qrow + (part >> 2) * (a.d_pad >> 1) + c * 32 + (part & 3) * 8;
+    } else {
+      src = a.q16 + qrow + c * 64 + part * 8;
+    }
+    cp_async16(slot + qi * query_row_bytes<DT>() + part * 16, src, ok);
+  }
+  constexpr int PIECES = stage_row_bytes<DT>() / 16;
+  uint8_t* xs = slot + QT * query_row_bytes<DT>();
+  const int row0 = r0 + t * TILE_ROWS;
+  for (int i = threadIdx.x; i < TILE_ROWS * PIECES; i += THREADS) {
+    const int ri = i / PIECES, part = i - ri * PIECES;
+    const bool ok = row0 + ri < r1;
+    const uint8_t* src = a.db + (size_t)(ok ? row0 + ri : 0) * a.row_bytes +
+                         c * stage_row_bytes<DT>() + part * 16;
+    cp_async16(xs + ri * ring_row_bytes<DT>() + part * 16, src, ok);
+  }
+}
+
+// Bytes j, j + 1 of w (int8) as an exact bf16 pair, byte j in the low half.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w, int j) {
+  return __byte_perm(__float_as_uint((float)(int8_t)(w >> (8 * j))),
+                     __float_as_uint((float)(int8_t)(w >> (8 * j + 8))), 0x7632);
+}
+
+// Two nibbles, at bits 0-3 and 16-19 of pair (all else zero), as an exact
+// bf16 pair: 128 + n has the bf16 exponent of 128 and n in its mantissa,
+// and an fma subtracts the 128 exactly.
+__device__ __forceinline__ uint32_t nib2_bf16(uint32_t pair) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(pair | 0x43004300u), "r"(0x3f803f80u), "r"(0xc300c300u));
+  return d;
+}
+
+// f32 rows: register-tiled FFMA. Warps are 2 (queries) x 4 (rows of 64);
+// lane (lq, lr) = (lane / 8, lane % 8) sums queries lq + 4j (j < QT/8) of
+// its warp's half against rows lr + 8i (i < 8) of its warp's 64.
+template <int QT>
+struct FmaTile {
+  static constexpr int JQ = QT / 8;
+  float acc[JQ][8];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < JQ; j++)
+#pragma unroll
+      for (int i = 0; i < 8; i++) acc[j][i] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const uint8_t* qs, const uint8_t* xs, int warp,
+                                       int lane) {
+    constexpr int RS = STAGE_ROW / 4;  // row stride in floats
+    const float* Q = reinterpret_cast<const float*>(qs) + ((warp >> 2) * 4 * JQ + (lane >> 3)) * RS;
+    const float* X = reinterpret_cast<const float*>(xs) + ((warp & 3) * 64 + (lane & 7)) * RS;
+#pragma unroll
+    for (int c4 = 0; c4 < 32; c4 += 4) {
+      float4 qv[JQ];
+#pragma unroll
+      for (int j = 0; j < JQ; j++) qv[j] = lds4(Q + j * 4 * RS + c4);
+#pragma unroll
+      for (int i = 0; i < 8; i++) {
+        const float4 xv = lds4(X + i * 8 * RS + c4);
+#pragma unroll
+        for (int j = 0; j < JQ; j++) acc[j][i] = dot4(qv[j], xv.x, xv.y, xv.z, xv.w, acc[j][i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* K, int warp, int lane) const {
+    float* base = K + ((warp >> 2) * 4 * JQ + (lane >> 3)) * KEY_STRIDE + (warp & 3) * 64 + (lane & 7);
+#pragma unroll
+    for (int j = 0; j < JQ; j++)
+#pragma unroll
+      for (int i = 0; i < 8; i++) base[j * 4 * KEY_STRIDE + i * 8] = acc[j][i];
+  }
+};
+
+// bf16, int8, int4 rows: mma.sync m16n8k16 bf16 -> f32. Warp w takes rows
+// 32w .. 32w + 31 (two m16 tiles) against all QT queries (QT/8 n8 tiles).
+//  * bf16: A and B fragments by ldmatrix from the staged rows and queries.
+//  * int8 / int4: ldmatrix on the stored bytes gives lane (g, t) bytes
+//    4t .. 4t + 3 of rows g and g + 8 in each 16-byte column; they are
+//    widened to bf16 in registers, once per row (each row has one warp).
+//    The fragment's k order is then 4t, 4t + 1 (a0/a1), 4t + 2, 4t + 3
+//    (a2/a3) in place of 2t, 2t + 1, 2t + 8, 2t + 9; the sum does not
+//    depend on k order, so B is loaded in the same order: one 8-byte load
+//    of query components 4t .. 4t + 3.
+template <int DT, int QT>
+struct MmaTile {
+  static constexpr int NT = QT / 8;
+  static constexpr int QS = query_row_bytes<DT>();
+  static constexpr int XS = ring_row_bytes<DT>();
+  float acc[2][NT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < 2; m++)
+#pragma unroll
+      for (int n = 0; n < NT; n++)
+#pragma unroll
+        for (int e = 0; e < 4; e++) acc[m][n][e] = 0.f;
+  }
+
+  // One k16 group against every query: B by 8-byte loads at query
+  // component kb (k order 4t .. 4t + 3).
+  __device__ __forceinline__ void mma_group(const uint8_t* qs, int kb, int lane,
+                                            const uint32_t (&a0)[4], const uint32_t (&a1)[4]) {
+#pragma unroll
+    for (int n = 0; n < NT; n++) {
+      const uint2 b = *reinterpret_cast<const uint2*>(
+          qs + (n * 8 + (lane >> 2)) * QS + kb * 2 + (lane & 3) * 8);
+      mma_bf16_16816(acc[0][n], a0, b.x, b.y);
+      mma_bf16_16816(acc[1][n], a1, b.x, b.y);
+    }
+  }
+
+  __device__ __forceinline__ void step(const uint8_t* qs, const uint8_t* xs, int warp,
+                                       int lane) {
+    // A: lane l addresses row l % 16 of the m16 tile at 16-byte column l / 16
+    const uint8_t* xa = xs + (warp * 32 + (lane & 15)) * XS + (lane >> 4) * 16;
+    if constexpr (DT == DT_BF16) {
+      // B: lanes 0-7 / 8-15 give queries 0-7 at k-halves 0 / 1, lanes
+      // 16-23 / 24-31 queries 8-15 at k-halves 0 / 1
+      const uint8_t* qb = qs + ((lane & 7) + ((lane >> 4) << 3)) * QS + ((lane >> 3) & 1) * 16;
+#pragma unroll
+      for (int kk = 0; kk < 4; kk++) {  // four k16 steps of 32 bytes
+        uint32_t a[2][4];
+        ldmatrix_x4(a[0], xa + kk * 32);
+        ldmatrix_x4(a[1], xa + 16 * XS + kk * 32);
+#pragma unroll
+        for (int nb = 0; nb < NT / 2; nb++) {
+          uint32_t b[4];
+          ldmatrix_x4(b, qb + nb * 16 * QS + kk * 32);
+#pragma unroll
+          for (int m = 0; m < 2; m++) {
+            mma_bf16_16816(acc[m][2 * nb], a[m], b[0], b[1]);
+            mma_bf16_16816(acc[m][2 * nb + 1], a[m], b[2], b[3]);
+          }
+        }
+      }
+    } else if constexpr (DT == DT_I8) {
+#pragma unroll
+      for (int h = 0; h < 2; h++) {  // 32 stored bytes = two k16 groups
+        uint32_t r[2][4], a[2][2][4];
+#pragma unroll
+        for (int m = 0; m < 2; m++) {
+          ldmatrix_x4(r[m], xa + m * 16 * XS + h * 32);
+#pragma unroll
+          for (int g = 0; g < 2; g++) {  // r[m][2g]: row g, r[m][2g + 1]: row g + 8
+            a[g][m][0] = i8x2_bf16(r[m][2 * g], 0);
+            a[g][m][1] = i8x2_bf16(r[m][2 * g + 1], 0);
+            a[g][m][2] = i8x2_bf16(r[m][2 * g], 2);
+            a[g][m][3] = i8x2_bf16(r[m][2 * g + 1], 2);
+          }
+        }
+        mma_group(qs, h * 32, lane, a[0][0], a[0][1]);
+        mma_group(qs, h * 32 + 16, lane, a[1][0], a[1][1]);
+      }
+    } else {  // int4: low nibbles meet query components 0-31, high 32-63
+      uint32_t r[2][4], a[4][2][4];
+#pragma unroll
+      for (int m = 0; m < 2; m++) {
+        ldmatrix_x4(r[m], xa + m * 16 * XS);
+#pragma unroll
+        for (int g = 0; g < 2; g++) {
+          const uint32_t w0 = r[m][2 * g], w8 = r[m][2 * g + 1];  // rows g, g + 8
+          // low nibbles of bytes (0, 1) and (2, 3), then the high ones
+          a[g][m][0] = nib2_bf16((w0 & 0xfu) | ((w0 << 8) & 0xf0000u));
+          a[g][m][1] = nib2_bf16((w8 & 0xfu) | ((w8 << 8) & 0xf0000u));
+          a[g][m][2] = nib2_bf16(((w0 >> 16) & 0xfu) | ((w0 >> 8) & 0xf0000u));
+          a[g][m][3] = nib2_bf16(((w8 >> 16) & 0xfu) | ((w8 >> 8) & 0xf0000u));
+          a[2 + g][m][0] = nib2_bf16(((w0 >> 4) & 0xfu) | ((w0 << 4) & 0xf0000u));
+          a[2 + g][m][1] = nib2_bf16(((w8 >> 4) & 0xfu) | ((w8 << 4) & 0xf0000u));
+          a[2 + g][m][2] = nib2_bf16(((w0 >> 20) & 0xfu) | ((w0 >> 12) & 0xf0000u));
+          a[2 + g][m][3] = nib2_bf16(((w8 >> 20) & 0xfu) | ((w8 >> 12) & 0xf0000u));
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 4; g++) mma_group(qs, g * 16, lane, a[g][0], a[g][1]);
+    }
+  }
+
+  // C fragment: lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of
+  // each m16 tile at queries 2t and 2t + 1 of each n8 tile.
+  __device__ __forceinline__ void store(float* K, int warp, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int m = 0; m < 2; m++)
+#pragma unroll
+      for (int n = 0; n < NT; n++) {
+        float* p = K + (n * 8 + 2 * t) * KEY_STRIDE + warp * 32 + m * 16 + g;
+        p[0] = acc[m][n][0];
+        p[KEY_STRIDE] = acc[m][n][1];
+        p[8] = acc[m][n][2];
+        p[KEY_STRIDE + 8] = acc[m][n][3];
+      }
+  }
+};
+
+// The tile's keys of this warp's QW queries, in rising row order, into its
+// sorted lists: 32 rows at a time, a ballot against each query's k-th best,
+// then an insert for each row that still beats it.
+template <int DT, int QW>
+__device__ __forceinline__ void tile_select(const ScanArgs& a, const float* K,
+                                            const float* qsum8, int row0, int r1, int warp,
+                                            int lane, float (&val)[QW], int (&id)[QW]) {
+  constexpr int C = TILE_ROWS / 32;
+  float scl[C], sqn[C];
+  bool live[C];
+#pragma unroll
+  for (int c = 0; c < C; c++) {
+    const int r = row0 + c * 32 + lane;
+    live[c] = r < r1 && (!a.mask || __ldg(a.mask + r) > 0.5f);
+    scl[c] = (DT == DT_I4 && live[c]) ? __ldg(a.scales + r) : 1.f;
+    sqn[c] = (a.euclid && live[c]) ? __ldg(a.sq + r) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < QW; j++) {
+    const int qq = warp * QW + j;
+    const float qs8 = DT == DT_I4 ? qsum8[qq] : 0.f;
+    float thr = __shfl_sync(FULL, val[j], a.k - 1);
+    float key[C];
+    bool pass = false;
+#pragma unroll
+    for (int c = 0; c < C; c++) {
+      key[c] = K[qq * KEY_STRIDE + c * 32 + lane];
+      if (DT == DT_I4) key[c] = (key[c] - qs8) * scl[c];  // offset 8 folded out
+      if (a.euclid) key[c] = 2.f * key[c] - sqn[c];       // rank-equivalent L2 key
+      if (!live[c]) key[c] = neg_inf();
+      pass |= key[c] > thr;
+    }
+    // after the first tiles almost no row beats the k-th best: one ballot
+    if (!__any_sync(FULL, pass)) continue;
+#pragma unroll
+    for (int c = 0; c < C; c++) {
+      // rows arrive in rising id order, so a key equal to the k-th best
+      // loses to it: strict > is the (key, id) order here
+      unsigned m = __ballot_sync(FULL, key[c] > thr);
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const float sk = __shfl_sync(FULL, key[c], src);
+        if (sk > thr) {
+          warp_insert(val[j], id[j], sk, row0 + c * 32 + src, a.k, lane);
+          thr = __shfl_sync(FULL, val[j], a.k - 1);
+        }
+      }
+    }
+  }
+}
+
+// Candidates out: (Q, splits, k), one list per (block, query).
+template <int DT, int QT>
+__global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
+  extern __shared__ __align__(16) uint8_t tsmem[];
+  constexpr int SLOT = slot_bytes<DT, QT>();
+  constexpr int STAGES = tile_stages<DT, QT>();
+  constexpr int QW = QT / WARPS;
+  float* K = reinterpret_cast<float*>(tsmem + STAGES * SLOT);
+  float* qsum8 = K + QT * KEY_STRIDE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * QT;
+  const int r0 = blockIdx.y * a.rows_per_split;
+  const int r1 = min(a.count, r0 + a.rows_per_split);
+  const int n_tiles = r1 > r0 ? (r1 - r0 + TILE_ROWS - 1) / TILE_ROWS : 0;
+  const int n_chunks = a.d_pad / stage_comps<DT>();
+  const int total = n_tiles * n_chunks;
+
+  if (DT == DT_I4) {  // read by the same warp's epilogue, after barriers
+#pragma unroll
+    for (int j = 0; j < QW; j++) {
+      const int qq = warp * QW + j;
+      float s = 0.f;
+      if (q0 + qq < a.Q)
+        for (int c = lane; c < a.d_pad; c += 32) s += a.q[(size_t)(q0 + qq) * a.d_pad + c];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      if (lane == 0) qsum8[qq] = 8.f * s;
+    }
+  }
+  float val[QW];
+  int id[QW];
+#pragma unroll
+  for (int j = 0; j < QW; j++) { val[j] = neg_inf(); id[j] = 0; }
+
+  typename std::conditional<DT == DT_F32, FmaTile<QT>, MmaTile<DT, QT>>::type tile;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; s++) {
+    if (s < total) tile_copy<DT, QT>(a, q0, r0, r1, n_chunks, s, tsmem + s * SLOT);
+    cp_async_commit();
+  }
+  for (int s = 0; s < total; s++) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step s has landed; every warp is done with step s - 1
+    const int next = s + STAGES - 1;
+    if (next < total)
+      tile_copy<DT, QT>(a, q0, r0, r1, n_chunks, next, tsmem + (next % STAGES) * SLOT);
+    cp_async_commit();
+    const int t = s / n_chunks, c = s - t * n_chunks;
+    const uint8_t* slot = tsmem + (s % STAGES) * SLOT;
+    if (c == 0) tile.zero();
+    tile.step(slot, slot + QT * query_row_bytes<DT>(), warp, lane);
+    if (c == n_chunks - 1) {
+      tile.store(K, warp, lane);
+      __syncthreads();
+      tile_select<DT, QW>(a, K, qsum8, r0 + t * TILE_ROWS, r1, warp, lane, val, id);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < QW; j++) {
+    const int qq = q0 + warp * QW + j;
+    if (qq < a.Q && lane < a.k) {
+      const size_t o = ((size_t)qq * gridDim.y + blockIdx.y) * a.k + lane;
+      a.cand_keys[o] = val[j];
+      a.cand_ids[o] = id[j];
     }
   }
 }
@@ -257,8 +676,35 @@ static cudaError_t launch_scan(const ScanArgs& a, int splits, int big, cudaStrea
   return cudaGetLastError();
 }
 
+template <int DT, int QT>
+static cudaError_t launch_tile(const ScanArgs& a, int splits, cudaStream_t st) {
+  constexpr size_t smem = tile_smem_bytes<DT, QT>();
+  static_assert(smem <= MAX_SMEM, "tile does not fit in shared memory");
+  if (a.d_pad % stage_comps<DT>() || (DT != DT_F32 && !a.q16)) return cudaErrorInvalidValue;
+  const dim3 grid((a.Q + QT - 1) / QT, splits);
+  cudaFuncSetAttribute(scan_small_k_tile<DT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  scan_small_k_tile<DT, QT><<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// qt 1..8: scan_small_k / scan_big_k; tile: scan_small_k_tile, f32 at qt
+// 16, 32 or 64, the tensor-core types at 64.
 template <int DT>
-static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int big, cudaStream_t st) {
+static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int big, int tile,
+                             cudaStream_t st) {
+  if (tile) {
+    if (big) return cudaErrorInvalidValue;
+    if constexpr (DT != DT_F32) {
+      return qt == 64 ? launch_tile<DT, 64>(a, splits, st) : cudaErrorInvalidValue;
+    } else {
+      switch (qt) {
+        case 16: return launch_tile<DT, 16>(a, splits, st);
+        case 32: return launch_tile<DT, 32>(a, splits, st);
+        case 64: return launch_tile<DT, 64>(a, splits, st);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+  }
   switch (qt) {
     case 1: return launch_scan<DT, 1>(a, splits, big, st);
     case 2: return launch_scan<DT, 2>(a, splits, big, st);
@@ -267,12 +713,6 @@ static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int big, cud
     default: return cudaErrorInvalidValue;
   }
 }
-
-extern "C" int vdb_scan_smem_bytes(int qt, int d_pad, int big, int k) {
-  return (int)scan_smem_bytes(qt, d_pad, big, big_kb(k));
-}
-
-extern "C" int vdb_warps_per_block(void) { return WARPS; }
 
 // (key, id) slots of device-memory scratch vdb_flat_topk needs: the big-k
 // regions when they do not fit in shared memory, then the merge's working
@@ -291,26 +731,31 @@ extern "C" long long vdb_flat_scratch_slots(int Q, int qt, int splits, int k) {
   return (long long)(scan_scratch_slots(Q, qt, splits, k) + merge_scratch_slots(Q, k));
 }
 
-// q: (Q, d_pad) f32, already rounded to the storage type's query precision.
-// db: (>= count, row_bytes) rows of dtype (0 f32, 1 bf16, 2 int8, 3 int4).
-// sq / mask / scales: per-row f32 or null. cand_*: (Q, n_lists, k) scratch
-// with n_lists = splits * WARPS when k <= 32, else splits. out_*: (Q, k).
+// q: (Q, d_pad) f32, already rounded to the storage type's query precision;
+// q16: the same as bf16 (read by the tile design for bf16/int8/int4 rows,
+// else may be null). db: (>= count, row_bytes) rows of dtype (0 f32, 1
+// bf16, 2 int8, 3 int4). sq / mask / scales: per-row f32 or null. tile: 1
+// for scan_small_k_tile (k <= 32). cand_*: (Q, n_lists, k) scratch; the
+// launch is refused unless n_lists is what the scan writes: splits * WARPS
+// for scan_small_k, else splits. out_*: (Q, k).
 // scratch_*: vdb_flat_scratch_slots(Q, qt, splits, k) slots, or null when
 // that is 0.
-extern "C" int vdb_flat_topk(const float* q, int Q, int d_pad, const void* db, int dtype,
-                             int row_bytes, int count, const float* sq, const float* mask,
-                             const float* scales, int euclid, int k, int qt, int splits,
-                             int rows_per_split, float* cand_keys, int* cand_ids,
-                             float* out_keys, int* out_ids, float* scratch_keys,
-                             int* scratch_ids, void* stream) {
+extern "C" int vdb_flat_topk(const float* q, const uint16_t* q16, int Q, int d_pad,
+                             const void* db, int dtype, int row_bytes, int count,
+                             const float* sq, const float* mask, const float* scales,
+                             int euclid, int k, int qt, int tile, int splits,
+                             int rows_per_split, int n_lists, float* cand_keys,
+                             int* cand_ids, float* out_keys, int* out_ids,
+                             float* scratch_keys, int* scratch_ids, void* stream) {
+  const int big = k > 32;
   if (k < 1 || Q < 1 || splits < 1 || row_bytes % 16 ||
+      n_lists != ((big || tile) ? splits : splits * WARPS) ||
       (euclid && !sq) || (dtype == DT_I4 && !scales) ||
       (vdb_flat_scratch_slots(Q, qt, splits, k) && (!scratch_keys || !scratch_ids)))
     return cudaErrorInvalidValue;
-  const int big = k > 32;
   const size_t scan_slots = scan_scratch_slots(Q, qt, splits, k);
   ScanArgs a;
-  a.q = q; a.Q = Q; a.d_pad = d_pad;
+  a.q = q; a.q16 = q16; a.Q = Q; a.d_pad = d_pad;
   a.db = static_cast<const uint8_t*>(db);
   a.row_bytes = row_bytes; a.count = count;
   a.sq = sq; a.mask = mask; a.scales = scales;
@@ -323,14 +768,13 @@ extern "C" int vdb_flat_topk(const float* q, int Q, int d_pad, const void* db, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case DT_F32: err = launch_dt<DT_F32>(a, qt, splits, big, st); break;
-    case DT_BF16: err = launch_dt<DT_BF16>(a, qt, splits, big, st); break;
-    case DT_I8: err = launch_dt<DT_I8>(a, qt, splits, big, st); break;
-    case DT_I4: err = launch_dt<DT_I4>(a, qt, splits, big, st); break;
+    case DT_F32: err = launch_dt<DT_F32>(a, qt, splits, big, tile, st); break;
+    case DT_BF16: err = launch_dt<DT_BF16>(a, qt, splits, big, tile, st); break;
+    case DT_I8: err = launch_dt<DT_I8>(a, qt, splits, big, tile, st); break;
+    case DT_I4: err = launch_dt<DT_I4>(a, qt, splits, big, tile, st); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  const int n_lists = big ? splits : splits * WARPS;
   return launch_merge(cand_keys, cand_ids, Q, n_lists * k, k,
                       scratch_keys ? scratch_keys + scan_slots : nullptr,
                       scratch_ids ? scratch_ids + scan_slots : nullptr,

@@ -1,7 +1,7 @@
 // Device code shared by flat_topk.cu and ivf_topk.cu: the (key, id) order,
 // the warp's dot product of one stored row against queries held in shared
-// memory, a block-wide bitonic sort and the per-query merge of candidate
-// lists.
+// memory, the PTX wrappers of cp.async, ldmatrix and mma.sync, a
+// block-wide bitonic sort and the per-query merge of candidate lists.
 //
 // Order everywhere is key descending, then id ascending. Slots that hold no
 // row carry key -inf and id INT_MAX while they are being sorted.
@@ -127,6 +127,53 @@ __device__ __forceinline__ void row_keys(const uint4* __restrict__ row, int n_ch
     if (euclid) s = 2.f * s - sqnorm;             // rank-equivalent L2 key
     acc[t] = s;
   }
+}
+
+// ---- Hopper data movement and tensor-core helpers (PTX) ----
+
+// 16-byte copy device -> shared memory that does not stall the thread; with
+// ok false nothing is read and the 16 bytes are zero-filled. The hint has
+// L2 fetch the 256 bytes around src, so that the next chunks of a stored
+// row come from L2.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i, which lands in r[i] as the mma
+// fragment layout wants it (lane l: row l/4, columns 2(l%4), +1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major).
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats that are exact in bf16 (small integers) as a bf16 pair, lo in
+// the low half: truncation drops only zero bits.
+__device__ __forceinline__ uint32_t bf16x2_exact(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
 }
 
 // Insert (s, sid) into a warp's sorted list (lane j holds the j-th best of

@@ -3,7 +3,13 @@
 Counterpart of ``tpu_vector_db/ops/pallas_scan.py::pallas_flat_topk``,
 with the same contract. The kernels are ``csrc/flat_topk.cu``:
 
-* ``scan_kernel``      (k <= 32) replaces ``_scan_kernel``;
+* ``scan_kernel``      (k <= 32) replaces ``_scan_kernel``, in one of two
+  designs that ``_launch_plan`` picks from the batch and the row type:
+  below ``TILE_MIN_Q`` queries a warp scores one row at a time against up
+  to 8 queries (``scan_small_k``, bound by bytes); from it a block scores
+  tiles of 256 rows against up to 64 queries, f32 by register-tiled FFMA
+  and bf16/int8/int4 on the tensor cores (``scan_small_k_tile``). Both
+  count as one ``scan_kernel`` launch;
 * ``scan_kernel_bigk`` (k > 32) replaces ``_scan_kernel_bigk``. The TPU
   kernel stops at k = 1024, where the JAX store turns to its XLA scan;
   this kernel takes any k, so the store serves every k on the card.
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -33,15 +40,104 @@ from tpu_vector_db_torch.ops.scan import scan_blocks
 from tpu_vector_db_torch.ops.topk import NEG_INF
 
 MAX_K_SMALL = 32      # scan_kernel: per-warp register lists
+# the tile design from this batch up, by row type (chip_smoke.py's
+# crossover lines time both designs at batch 2-16). f32: up to batch 8 the
+# row loop reads the rows once and is bound by bytes, as the tile is by
+# its CUDA-core operations; from batch 9 the loop reads them twice. The
+# tensor-core tile is faster than the loop from batch 2.
+TILE_MIN_Q = {torch.float32: 9, torch.bfloat16: 2, torch.int8: 2,
+              torch.uint8: 2}
 _MAX_SMEM = 232448    # dynamic shared memory a block may use on sm_90
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.uint8: 3}
-# blocks the partial pass aims for: a few per SM on the 132 SMs
+# row loop (scan_small_k, scan_big_k): blocks the partial pass aims for, a
+# few per SM on the 132 SMs
 _TARGET_BLOCKS = {False: 528, True: 264}
 # big-k: a split scans at least 4*k rows, so that a large k does not send
 # (nearly) every row of a short split on to the merge
 _MIN_ROWS_PER_SPLIT = {False: 1024, True: 4096}
 _BIG_ROWS_PER_K = 4
+_WARPS = 8            # warps of a scan block (csrc/topk_common.cuh)
+_MIN_KB, _SMEM_MAX_KB = 1024, 8192   # big-k sorted best (csrc/flat_topk.cu)
+# tile design (csrc/flat_topk.cu): rows per tile, query tiles per type;
+# one block per SM (its shared memory), so a launch aims at one per SM
+_TILE_ROWS = 256
+_TILE_QT = {torch.float32: (16, 32, 64)}
+_TILE_QT_MMA = (64,)
+# stored components of one pipeline stage: the tile needs d_pad to be a
+# multiple (the stores pad to 128, int4 to 256)
+_TILE_COMPS = {torch.float32: 32}
+_TILE_COMPS_MMA = 64
+
+
+class LaunchPlan(NamedTuple):
+    """How ``flat_topk`` launches: ``design`` "loop" (scan_small_k), "tile"
+    (scan_small_k_tile) or "big" (scan_big_k), queries per block ``qt``,
+    ``splits`` row ranges of ``rows_per_split`` rows, and the candidate
+    lists per query the scan writes for the merge (``n_lists``)."""
+    design: str
+    qt: int
+    splits: int
+    rows_per_split: int
+    n_lists: int
+
+
+def _loop_smem_bytes(qt: int, d_pad: int, big: bool, k: int) -> int:
+    """Shared memory of scan_small_k / scan_big_k (csrc/flat_topk.cu
+    ``scan_smem_bytes``)."""
+    b = qt * d_pad * 4 + qt * 4
+    if big:
+        kb = max(1 << max(0, (k - 1).bit_length()), _MIN_KB)
+        b += qt * 8 + (qt * 2 * kb * 8 if kb <= _SMEM_MAX_KB else 0)
+    return b
+
+
+def _launch_plan(q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
+                 count: int, n_sm: int = 132) -> LaunchPlan:
+    """The design and launch shape for a call: big-k past MAX_K_SMALL; the
+    tile from TILE_MIN_Q queries of the row type (d_pad a multiple of its
+    stage); else the row loop."""
+    if k > MAX_K_SMALL:
+        design = "big"
+    elif q_n >= TILE_MIN_Q[db_dtype] and d_pad % _TILE_COMPS.get(
+            db_dtype, _TILE_COMPS_MMA) == 0:
+        design = "tile"
+    else:
+        design = "loop"
+    return _plan(design, q_n, db_dtype, d_pad, k, count, n_sm)
+
+
+def _plan(design: str, q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
+          count: int, n_sm: int = 132) -> LaunchPlan:
+    """The launch shape of one design (``_launch_plan`` picks the design;
+    chip_smoke.py's crossover lines time both at the same batch)."""
+    count = max(0, count)
+    if design == "tile":
+        sizes = _TILE_QT.get(db_dtype, _TILE_QT_MMA)
+        qt = next((c for c in sizes if c >= q_n), sizes[-1])
+        tiles = -(-q_n // qt)
+        splits = max(1, min(-(-n_sm // tiles), -(-count // _TILE_ROWS)))
+        rows = max(1, -(-count // splits))
+        rows_per_split = -(-rows // _TILE_ROWS) * _TILE_ROWS
+        splits = max(1, -(-count // rows_per_split))
+        return LaunchPlan(design, qt, splits, rows_per_split, splits)
+    big = design == "big"
+    qt = 1
+    for cand in (8, 4, 2):
+        if cand < 2 * q_n and _loop_smem_bytes(cand, d_pad, big, k) \
+                <= _MAX_SMEM:
+            qt = cand
+            break
+    tiles = -(-q_n // qt)
+    min_rows = max(_MIN_ROWS_PER_SPLIT[big], _BIG_ROWS_PER_K * k if big
+                   else 0)
+    splits = max(1, min(-(-_TARGET_BLOCKS[big] // tiles),
+                        -(-count // min_rows)))
+    rows_per_split = max(1, -(-count // splits))
+    splits = max(1, -(-count // rows_per_split))
+    return LaunchPlan(design, qt, splits, rows_per_split,
+                      splits if big else splits * _WARPS)
+
 
 _lib_lock = threading.Lock()
 _lib = None
@@ -59,15 +155,11 @@ def _library() -> ctypes.CDLL:
             lib = _build.load("flat_topk")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vdb_flat_topk.argtypes = [
-                p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p,
-                p, p]
+                p, p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, i, i, p, p,
+                p, p, p, p, p]
             lib.vdb_flat_topk.restype = i
             lib.vdb_flat_scratch_slots.argtypes = [i, i, i, i]
             lib.vdb_flat_scratch_slots.restype = ctypes.c_longlong
-            lib.vdb_scan_smem_bytes.argtypes = [i, i, i, i]
-            lib.vdb_scan_smem_bytes.restype = i
-            lib.vdb_warps_per_block.argtypes = []
-            lib.vdb_warps_per_block.restype = i
             _lib = lib
         return _lib
 
@@ -136,7 +228,9 @@ def _f32_on(t, device, n):
 
 
 def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
-            db_scales):
+            db_scales, plan: LaunchPlan | None = None):
+    """One launch of the scan + merge on db's card, shaped by ``plan``
+    (``_launch_plan``'s when None)."""
     if torch.cuda.get_device_capability(db.device) != (9, 0):
         raise RuntimeError(
             "csrc/flat_topk.cu is built for sm_90a (Hopper); device "
@@ -153,36 +247,29 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     q_n = queries.shape[0]
     count = max(0, min(int(count), db.shape[0]))
     euclid = metric == "euclidean"
-    big = k > MAX_K_SMALL
-    q = queries.to(dev).to(query_dtype(db.dtype)).float().contiguous()
+    if plan is None:
+        plan = _launch_plan(
+            q_n, db.dtype, d_pad, k, count,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    rounded = queries.to(dev).to(query_dtype(db.dtype)).contiguous()
+    q = rounded.float().contiguous()
+    # the tensor-core tile reads the bf16 queries themselves
+    q16 = rounded if rounded.dtype == torch.bfloat16 \
+        and plan.design == "tile" else None
     sq = _f32_on(db_sqnorms, dev, count) if euclid else None
     if euclid and sq is None:
         sq = torch.zeros(max(count, 1), device=dev)  # as the TPU kernel
     mask = _f32_on(filter_mask, dev, count)
     scales = _f32_on(db_scales, dev, count)
 
-    qt = 1
-    for cand in (8, 4, 2):
-        if cand < 2 * q_n and lib.vdb_scan_smem_bytes(
-                cand, d_pad, int(big), k) <= _MAX_SMEM:
-            qt = cand
-            break
-    tiles = -(-q_n // qt)
-    min_rows = max(_MIN_ROWS_PER_SPLIT[big], _BIG_ROWS_PER_K * k if big
-                   else 0)
-    splits = max(1, min(-(-_TARGET_BLOCKS[big] // tiles),
-                        -(-count // min_rows)))
-    rows_per_split = max(1, -(-count // splits))
-    splits = max(1, -(-count // rows_per_split))
-    n_lists = splits if big else splits * lib.vdb_warps_per_block()
-
-    cand_keys = torch.empty((q_n, n_lists, k), dtype=torch.float32,
+    cand_keys = torch.empty((q_n, plan.n_lists, k), dtype=torch.float32,
                             device=dev)
-    cand_ids = torch.empty((q_n, n_lists, k), dtype=torch.int32, device=dev)
+    cand_ids = torch.empty((q_n, plan.n_lists, k), dtype=torch.int32,
+                           device=dev)
     keys = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((q_n, k), dtype=torch.int32, device=dev)
     # device-memory scratch for k > 8192 (big-k regions, merge areas)
-    slots = lib.vdb_flat_scratch_slots(q_n, qt, splits, k)
+    slots = lib.vdb_flat_scratch_slots(q_n, plan.qt, plan.splits, k)
     scratch_keys = scratch_ids = None
     if slots:
         scratch_keys = torch.empty(slots, dtype=torch.float32, device=dev)
@@ -194,10 +281,12 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vdb_flat_topk(
-            ptr(q), q_n, d_pad, ptr(db), _DTYPE_CODES[db.dtype], row_bytes,
-            count, ptr(sq), ptr(mask), ptr(scales), int(euclid), k, qt,
-            splits, rows_per_split, ptr(cand_keys), ptr(cand_ids),
-            ptr(keys), ptr(ids), ptr(scratch_keys), ptr(scratch_ids), stream)
+            ptr(q), ptr(q16), q_n, d_pad, ptr(db), _DTYPE_CODES[db.dtype],
+            row_bytes, count, ptr(sq), ptr(mask), ptr(scales), int(euclid),
+            k, plan.qt, int(plan.design == "tile"), plan.splits,
+            plan.rows_per_split, plan.n_lists, ptr(cand_keys),
+            ptr(cand_ids), ptr(keys), ptr(ids), ptr(scratch_keys),
+            ptr(scratch_ids), stream)
     if err != 0:
         raise RuntimeError(f"flat_topk kernel failed: CUDA error {err}")
     record(kernel_name(k))
