@@ -10,10 +10,12 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    card at 1M x 768 rows (f32, bf16, int8, int4; top-10 at batch 1, 16,
    64 and 100, top-100 at batch 1 and 64; a filtered case, a case with
    count < N, a euclidean case; big-k cases past the TPU kernel's
-   k = 1024, up to k = 20000) and times the kernel, the plain version and
+   k = 1024, up to k = 20000 at batch 1 and 64, and k = 1025 at batch 64
+   for every type) and times the kernel, the plain version and
    ``torch.matmul`` + ``torch.topk`` (a yardstick only: the port never
-   calls it); each line names the design that ran (``scan_kernel``: the
-   row loop or the tile). Then both designs of ``scan_kernel`` at batch
+   calls it); each line names the scoring design that ran (the row loop
+   or the tile; ``scan_kernel_bigk`` then runs the radix select). Then
+   both designs of ``scan_kernel`` at batch
    2-16 of every type, held and timed (the "crossover" lines the
    wrapper's ``TILE_MIN_Q`` is set from);
 3. holds the IVF probe kernel against its plain version on 2048 buckets
@@ -38,7 +40,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    384 bf16 with ``enable_ann=True``, flushed and reopened, the index
    served from its sidecar without a rebuild. After each path the kernels
    are held against their plain version once more on that store's own
-   rows, buckets, masks, batch sizes and k;
+   rows, buckets, masks, batch sizes and k, and the big-k calls of the
+   main path (top-2000 b1) and config #2 (top-100 b64) are profiled
+   (device time by kernel against the call's window: "profiled" lines,
+   after the path's launch counts are read);
 5. prints one JSON line of the kernels (launches from each kernel's
    headline path: ``main`` for the flat kernels, ``ivf`` for the IVF
    kernel), the card's name and power limit, and last ``{"ok": true,
@@ -241,10 +246,13 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         cases.append(("float32", 64, k, "cosine", "filtered", n))
         cases.append(("float32", 64, k, "cosine", None, n - 12345))
         cases.append(("float32", 64, k, "euclidean", None, n))
-    # big-k past the TPU kernel's k = 1024: shared-memory regions up to
-    # k = 8192, device-memory scratch past it
-    for k, q_n in ((1025, 1), (1025, 64), (4000, 1), (4000, 64), (20000, 1)):
+    # big-k past the TPU kernel's k = 1024: the select's survivors sorted
+    # in shared memory up to k = 16384, in device memory past it
+    for k, q_n in ((1025, 1), (1025, 64), (4000, 1), (4000, 64), (20000, 1),
+                   (20000, 64)):
         cases.append(("float32", q_n, k, "cosine", None, n))
+    for dtype in ("bfloat16", "int8", "int4"):
+        cases.append((dtype, 64, 1025, "cosine", None, n))
 
     headline: dict[str, dict] = {}
     errs: dict[str, float] = {}
@@ -561,7 +569,7 @@ def device_share(store, queries: np.ndarray, k: int, reps: int) -> dict:
     out.update(device_ms_per_call=busy_ms,
                device_busy_share=busy_ms / (window_us / reps / 1e3),
                device_ms_by_kernel=dict(sorted(
-                   by_name.items(), key=lambda kv: -kv[1])[:6]))
+                   by_name.items(), key=lambda kv: -kv[1])[:10]))
     return out
 
 
@@ -675,6 +683,9 @@ def path_main(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
     for q_n, k, flt in ((1, 10, None), (64, 10, None), (1, 100, None),
                         (1, 2000, None), (1, 10, {"cat": 3})):
         hold_store(store, "main", qs[:q_n], k, errs, flt)
+    r = counted(lambda: device_share(store, qs[:1], 2000, 5),
+                "scan_kernel_bigk")
+    emit({"phase": "main", "case": "768D f32 top-2000 b1 profiled", **r})
     del store, rows, meta
     free_card()
 
@@ -700,6 +711,9 @@ def path_config2(g, tmp: Path, counts: dict, errs: dict) -> None:
         emit({"phase": "main", "case": f"config2 {N}x128 L2 top-100 b64",
               "add_seconds": add_s, "recall@100_8q": recall, **r})
     hold_store(store, "config2", qs, 100, errs)
+    r = counted(lambda: device_share(store, qs, 100, 5), "scan_kernel_bigk")
+    emit({"phase": "main", "case": f"config2 {N}x128 L2 top-100 b64 "
+          "profiled", **r})
     del store, rows, keys
     free_card()
 

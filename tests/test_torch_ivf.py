@@ -451,10 +451,12 @@ def test_index_search_past_kernel_k_raises_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k,q_n", [(1025, 3), (4096, 2), (8193, 1)])
+@pytest.mark.parametrize("k,q_n", [(1025, 3), (4096, 2), (8193, 1),
+                                 (8193, 64), (20000, 1), (20000, 16)])
 def test_big_k_past_1024_on_card(k, q_n):
-    """scan_kernel_bigk past the TPU kernel's k = 1024: shared-memory
-    regions up to k = 8192, device-memory scratch past it."""
+    """scan_kernel_bigk past the TPU kernel's k = 1024: the survivors are
+    sorted in shared memory up to k = 16384 and in device memory past it
+    (k = 20000); batch 16 and 64 score with the tile."""
     dev = _cuda()
     rng = np.random.default_rng(15)
     n, d = 60000, 128

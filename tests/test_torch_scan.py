@@ -383,9 +383,12 @@ def test_launch_plan(q_n, dtype):
         # (less the splits that rounding to whole row tiles takes away)
         assert n_sm - 2 * tiles < tiles * plan.splits <= n_sm
         assert plan.n_lists == plan.splits
-    # k > 32 takes the big-k kernel at every batch
-    assert cuda_scan._launch_plan(q_n, tdt, 768, 100, count,
-                                  n_sm).design == "big"
+    # k > 32 takes the big-k kernel at every batch: the same scoring
+    # design, and 1M rows fit one chunk of the key scratch at these batches
+    big = cuda_scan._launch_plan(q_n, tdt, 768, 100, count, n_sm)
+    assert cuda_scan.kernel_name(100) == "scan_kernel_bigk"
+    assert big.design == plan.design and big.qt == plan.qt
+    assert big.chunk_rows >= count and big.n_lists == 1
 
 
 @pytest.mark.parametrize("count", [0, 5, 300, 20000])
@@ -396,6 +399,100 @@ def test_launch_plan_small_counts(count):
     assert plan.design == "tile" and plan.splits >= 1
     assert plan.splits * plan.rows_per_split >= count
     assert (plan.splits - 1) * plan.rows_per_split < max(count, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("q_n", [1, 2, 5, 8, 9, 64, 100])
+def test_launch_plan_big_k_scoring(q_n, dtype):
+    """k > 32 scores with the row loop below TILE_MIN_Q queries of the row
+    type and with the tile from it, as k <= 32 does; the loop's splits are
+    whole row tiles, so its keys go out in 16-byte runs."""
+    tdt = TORCH_DTYPES[dtype]
+    count = 1_000_000
+    plan = cuda_scan._launch_plan(q_n, tdt, 768, 100, count)
+    want = "tile" if q_n >= cuda_scan.TILE_MIN_Q[tdt] else "loop"
+    assert plan.design == want
+    assert plan.design == cuda_scan._launch_plan(q_n, tdt, 768, 10,
+                                                 count).design
+    assert plan.rows_per_split % 256 == 0
+    assert plan.splits * plan.rows_per_split >= count
+    assert (plan.splits - 1) * plan.rows_per_split < count
+    assert plan.n_lists == 1 and plan.chunk_rows >= count
+
+
+@pytest.mark.parametrize("budget", [1 << 20, 64 << 20,
+                                    cuda_scan.KEY_SCRATCH_BYTES])
+@pytest.mark.parametrize("q_n,count", [(1, 0), (1, 5), (3, 300_000),
+                                       (64, 1_000_000), (100, 999_999),
+                                       (1024, 1_000_000)])
+def test_launch_plan_big_k_chunks(q_n, count, budget):
+    """k > 32: chunks of whole row tiles cover the rows once, each chunk's
+    key scratch (q_n x chunk_rows f32) stays within the budget, there is
+    one candidate list per chunk, and one launch's splits cover a chunk."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = cuda_scan._launch_plan(q_n, dtype, 768, 1025, count,
+                                      budget=budget)
+        chunk = plan.chunk_rows
+        assert chunk % 256 == 0 and chunk >= 256
+        assert q_n * chunk * 4 <= max(budget, q_n * 256 * 4)
+        n_chunks = max(1, -(-count // chunk))
+        assert plan.n_lists == n_chunks
+        assert (n_chunks - 1) * chunk < max(count, 1) <= n_chunks * chunk
+        assert plan.splits * plan.rows_per_split >= min(count, chunk)
+        assert plan.rows_per_split % 4 == 0
+    # the budget the module states keeps 1M rows in one chunk at batch 64
+    assert cuda_scan._launch_plan(64, torch.float32, 768, 100,
+                                  1_000_000).n_lists == 1
+
+
+class _FakeLib:
+    """Stands in for the built library: records the calls of the C
+    interface, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def vdb_flat_scratch_bytes(self, q_n, k, count, chunk_rows):
+        return 1024 if k > cuda_scan.MAX_K_SMALL else 0
+
+    def vdb_flat_topk(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("k,budget", [(10, cuda_scan.KEY_SCRATCH_BYTES),
+                                      (100, cuda_scan.KEY_SCRATCH_BYTES),
+                                      (100, 4 * 4096 * 4)])
+def test_launch_plan_one_launch_per_call(monkeypatch, k, budget):
+    """One call of the C interface and one recorded launch per flat_topk
+    call, whether k > 32 goes in one chunk or in several (a budget of 4096
+    rows a query forces 3 chunks over 10000 rows); the call carries the
+    plan's chunking and, with several chunks, candidate lists for the
+    merge."""
+    fake = _FakeLib()
+    monkeypatch.setattr(cuda_scan, "_library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (9, 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: __import__(
+        "contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    x, q, _, _ = _inputs(13, 10000, 64, 4, "cosine", "float32")
+    plan = cuda_scan._launch_plan(4, torch.float32, 64, k, 10000,
+                                  budget=budget)
+    name = cuda_scan.kernel_name(k)
+    before = LAUNCHES[name]
+    cuda_scan._launch(torch.from_numpy(q), torch.from_numpy(x), 64, 10000, k,
+                      "cosine", None, None, None, plan)
+    assert LAUNCHES[name] == before + 1
+    assert len(fake.calls) == 1
+    args = fake.calls[0]
+    assert args[17:19] == (plan.n_lists, plan.chunk_rows)
+    if k > cuda_scan.MAX_K_SMALL:
+        assert plan.n_lists == (3 if budget < (1 << 20) else 1)
+        assert (args[19] is None) == (plan.n_lists == 1)   # candidate lists
+        assert args[23] is not None                         # scratch
+    else:
+        assert plan.chunk_rows == 0 and args[19] is not None
 
 
 def _card_db(x, dtype):
@@ -469,3 +566,189 @@ def test_tile_ties_across_tiles_and_splits_on_card(dtype):
     assert np.all(ids[:, :len(ties)] == np.array(ties)[None, :]), ids[0]
     assert np.all(keys.cpu().numpy()[:, :len(ties)]
                   == 2.0 * np.sum(x[src].astype(np.float32) ** 2))
+
+
+# ---- k > 32 on the card: tile or loop scoring + the radix select ----
+
+def _on_card(fn, *args, **kw):
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return [t.cpu().numpy() for t in out]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [33, 100, 1025])
+@pytest.mark.parametrize("q_n", [1, 5, 64, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
+def test_big_k_matches_plain_on_card(dtype, q_n, k):
+    """scan_kernel_bigk against the plain version: every type, batch 1 and
+    5 (the row loop for f32, the tile for the tensor-core types from 2), 64
+    and 100 (two query tiles), unmasked and masked, at a count that ends
+    inside a row tile; one launch per call."""
+    _need_card()
+    n, d, count = 20000, 256, 19000 - 7
+    x, q, _, scales = _inputs(16, n, d, q_n, "cosine", dtype)
+    db = _card_db(x, dtype)
+    scl = None if scales is None else torch.from_numpy(scales).cuda()
+    mask = torch.from_numpy(
+        (np.random.default_rng(2).random(n) < 0.5).astype(np.float32))
+    qt = torch.from_numpy(q).cuda()
+    for fm in (None, mask.cuda()):
+        kw = dict(db_scales=scl, filter_mask=fm)
+        before = LAUNCHES["scan_kernel_bigk"]
+        got = _on_card(flat_topk, qt, db, count, k, **kw)
+        assert LAUNCHES["scan_kernel_bigk"] == before + 1
+        want = _on_card(flat_topk_plain, qt, db, count, k, **kw)
+        assert_close_topk(got, want, KEY_TOL)
+        assert np.all(got[1] < count)
+        if fm is not None:
+            assert np.all(mask.numpy()[got[1]] > 0.5)
+
+
+def _chunked(q, db, count, k, budget, **kw):
+    """flat_topk through a plan whose key-scratch budget forces chunks."""
+    d_pad = q.shape[1]
+    plan = cuda_scan._launch_plan(q.shape[0], db.dtype, d_pad, k, count,
+                                  budget=budget)
+    metric = kw.get("metric", "cosine")
+    keys, ids = cuda_scan._launch(q, db, d_pad, count, k, metric,
+                                  kw.get("db_sqnorms"), kw.get("filter_mask"),
+                                  kw.get("db_scales"), plan)
+    return cuda_scan._finish(keys, ids, q, metric), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("q_n", [1, 16])
+@pytest.mark.parametrize("chunks", [False, True])
+def test_big_k_ties_straddle_kth_on_card(dtype, q_n, chunks):
+    """3000 identical rows spread over every split (and, with ``chunks``,
+    over 5 chunks of the key scratch), with the k-th key inside the block
+    of ties: the keys above it come first, then the lowest tied ids in
+    rising order. Small integers: every sum is exact in f32 and every
+    value in bf16, so the ties are exact on every path."""
+    _need_card()
+    n, d = 40000, 64
+    rng = np.random.default_rng(17)
+    x = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    src = 12345
+    ties = np.sort(rng.choice(n, 3000, replace=False))
+    x[ties] = x[src]
+    ties = np.union1d(ties, [src])
+    q = np.repeat(x[src:src + 1] * 2.0, q_n, axis=0)
+    exact = x.astype(np.float64) @ q[0].astype(np.float64)
+    tie_key = exact[src]
+    above = int(np.sum(exact > tie_key))
+    tied = np.flatnonzero(exact == tie_key)       # ties plus any equal row
+    k = above + 1500
+    assert len(tied) > 1500
+    db = _card_db(x.astype(np.int8) if dtype == "int8" else x, dtype)
+    qt = torch.from_numpy(q).cuda()
+    if chunks:
+        got, plan = _chunked(qt, db, n, k, budget=q_n * 8192 * 4,
+                             metric="dot_product")
+        assert plan.n_lists == 5
+        got = [t.cpu().numpy() for t in got]
+    else:
+        got = _on_card(flat_topk, qt, db, n, k, metric="dot_product")
+    keys, ids = got
+    assert np.all(keys[:, above:] == tie_key)
+    assert np.all(ids[:, above:] == tied[None, :1500]), ids[0, above:above + 8]
+    for r in range(q_n):
+        assert set(ids[r, :above]) == set(np.flatnonzero(exact > tie_key))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_n", [1, 4])
+def test_big_k_signed_zero_tie_on_card(q_n):
+    """Keys -0.0 and +0.0 tie and are ordered by id: int4 rows whose
+    nibbles are all 8 score (s - 8 sum q) * scale = +-0.0 by the sign of
+    their scale. The k-th key lies among the zeros."""
+    _need_card()
+    n, d = 4096, 256
+    rng = np.random.default_rng(18)
+    nib = rng.integers(0, 16, (n, d))
+    nib[1000:3000] = 8
+    scales = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    scales[1000:3000] = np.where(np.arange(2000) % 2 == 0, 1.0, -1.0)
+    packed = (nib[:, :d // 2] | (nib[:, d // 2:] << 4)).astype(np.uint8)
+    q = np.repeat(rng.choice([-1.0, 1.0], (1, d)), q_n, axis=0).astype(
+        np.float32)
+    exact = ((nib - 8).astype(np.float64) @ q[0].astype(np.float64)) \
+        * scales.astype(np.float64)
+    above = int(np.sum(exact > 0))
+    zeros = np.flatnonzero(exact == 0)
+    k = above + 500
+    keys, ids = _on_card(flat_topk, torch.from_numpy(q).cuda(),
+                         torch.from_numpy(packed).cuda(), n, k,
+                         db_scales=torch.from_numpy(scales).cuda())
+    assert np.all(keys[:, above:] == 0.0)
+    assert np.all(ids[:, above:] == zeros[None, :500]), ids[0, above:above + 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_n", [1, 16])
+@pytest.mark.parametrize("case", ["count0", "count_lt_k", "mask_lt_k"])
+def test_big_k_fewer_live_rows_than_k_on_card(case, q_n):
+    """Fewer live rows than k (no live row, count < k, a mask that leaves
+    fewer than k rows): the live rows first, in order, then -inf with id
+    0, for the row loop (batch 1) and the tile (batch 16)."""
+    _need_card()
+    n, d, k = 30000, 128, 100
+    x, q, _, _ = _inputs(19, n, d, q_n, "cosine", "float32")
+    count, mask = n, None
+    if case == "count0":
+        count = 0
+    elif case == "count_lt_k":
+        count = 37
+    else:
+        m = np.zeros(n, np.float32)
+        m[np.random.default_rng(3).choice(n, 60, replace=False)] = 1.0
+        mask = torch.from_numpy(m).cuda()
+    args = (torch.from_numpy(q).cuda(), torch.from_numpy(x).cuda(), count, k)
+    got = _on_card(flat_topk, *args, filter_mask=mask)
+    want = _on_card(flat_topk_plain, *args, filter_mask=mask)
+    live = {"count0": 0, "count_lt_k": 37, "mask_lt_k": 60}[case]
+    fin = np.isfinite(got[0])
+    assert fin.sum(axis=1).tolist() == [live] * q_n
+    assert np.all(fin[:, :live]) and np.all(got[1][~fin] == 0)
+    assert_close_topk(got, want, KEY_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,metric,q_n,k", [
+    ("float32", "cosine", 1, 100),
+    ("float32", "euclidean", 64, 100),
+    ("bfloat16", "cosine", 64, 1025),
+    ("int4", "cosine", 3, 33),
+    ("float32", "cosine", 2, 8193),       # several chunks, merge in device memory
+])
+def test_big_k_several_chunks_on_card(dtype, metric, q_n, k):
+    """A call whose key scratch is cut into chunks (through the plan's
+    budget): each chunk's top-k becomes one list and merge_topk_kernel
+    combines them; the result equals the plain version's."""
+    _need_card()
+    n, d = 30000, 256
+    x, q, sq, scales = _inputs(20, n, d, q_n, metric, dtype)
+    db = _card_db(x, dtype)
+    kw = dict(metric=metric,
+              db_sqnorms=None if sq is None else torch.from_numpy(sq).cuda(),
+              db_scales=None if scales is None
+              else torch.from_numpy(scales).cuda())
+    qt = torch.from_numpy(q).cuda()
+    before = LAUNCHES["scan_kernel_bigk"]
+    got, plan = _chunked(qt, db, n - 3, k, budget=q_n * 7168 * 4, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["scan_kernel_bigk"] == before + 1
+    assert plan.n_lists == 5
+    got = [t.cpu().numpy() for t in got]
+    want = _on_card(flat_topk_plain, qt, db, n - 3, k, **kw)
+    # un-normalized euclidean rows: keys are O(d), so is their f32 rounding
+    assert_close_topk(got, want, KEY_TOL * (d if metric == "euclidean"
+                                            else 1))

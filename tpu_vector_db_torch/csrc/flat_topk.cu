@@ -1,12 +1,14 @@
 // Exact flat top-k scan for Hopper (sm_90a): scores computed in the kernel
-// body, a running top-k per query, and a merge pass.
+// body, then the top-k of each query.
 //
 // Replaces the two TPU kernels behind one Pallas call site,
 // tpu_vector_db/ops/pallas_scan.py:
 //   _scan_kernel       (k <= 32) -> scan_small_k (small Q) or
 //                                   scan_small_k_tile (larger Q),
 //                                   then merge_topk_kernel
-//   _scan_kernel_bigk  (k > 32)  -> scan_big_k + merge_topk_kernel
+//   _scan_kernel_bigk  (k > 32)  -> the same two scoring kernels with a
+//                                   "store keys" epilogue, then the radix
+//                                   select of radix_select.cuh
 // The TPU big-k kernel stops at k = 1024; this one takes any k, so the
 // store serves every k the JAX store serves (its XLA scan takes k > 1024).
 // The wrapper (ops/cuda_scan.py::_launch_plan) picks the design from Q, k
@@ -21,12 +23,16 @@
 //    1.47 ms, bound by operations, just above its 0.92 ms of bytes. bf16,
 //    int8 and int4 take the same 98 GFLOP on the tensor cores (989
 //    TFLOP/s, 0.1 ms) and stay bound by their bytes.
+//  * k > 32 adds the key scratch: 4 bytes a (query, row), written once and
+//    read by four passes of the select (256 MB a pass at Q = 64 and 1M
+//    rows, about 0.08 ms each), and one shared-memory atomic a live key in
+//    the first pass.
 //
 // What the design does about it:
 //  * Blocks run in parallel with no carry (the TPU walks row blocks in
 //    sequence and carries its top-k across grid steps): a grid of
 //    (query tile x row split), each block scanning its own contiguous row
-//    range, then a second launch merges the splits' candidates.
+//    range; k <= 32 then merges the splits' candidates in a second launch.
 //  * small Q (scan_small_k, bytes bound): one warp scores one row at a time
 //    against up to 8 queries in shared memory. Each lane loads 16-byte
 //    chunks of the row (coalesced, up to 8 in flight per lane) and widens
@@ -61,36 +67,32 @@
 //    a ballot against the query's k-th best (the TPU kernel's threshold
 //    skip) and an insert for each passing row. The lists stay in
 //    registers across tiles; the block writes one list per query.
-//  * k > 32 (scan_big_k): as scan_small_k, but each query has a region of
-//    2*KB slots, KB = next_pow2(k) (at least 1024): the sorted best KB and
-//    a candidate area that rows above the threshold append to. When the
-//    area may overflow, a bitonic sort of the region restores the sorted
-//    best and raises the threshold. Up to KB = 8192 (128 KB a query) the
-//    region is in shared memory; past it, in device-memory scratch the
-//    wrapper allocates, and the wrapper gives each split at least 4*k rows
-//    so that few candidates reach the merge.
+//  * k > 32: the same two scoring kernels, picked by the same rule, with
+//    the epilogue templated: in place of the per-warp lists each block
+//    writes its keys, transformed as above, to a (Q, chunk rows) f32 key
+//    scratch in device memory, 16-byte runs along rows (the row loop
+//    stages a tile's keys in shared memory first). A radix select then
+//    takes each query's exact top-k in a few passes over the keys, with
+//    no sort of candidates; ties at the k-th key go to the lowest ids
+//    (radix_select.cuh). The scratch stays within the wrapper's budget:
+//    past it the rows are cut into chunks, each chunk's top-k is one
+//    candidate list, and merge_topk_kernel combines the lists.
 //  * The merge keeps the sorted best next_pow2(k) plus an equal candidate
 //    area (at least 4096 slots), in shared memory up to 16384 slots and in
 //    device-memory scratch past that (topk_common.cuh).
 //  * Order is key descending, then id ascending, everywhere. The TPU
 //    kernel's first-occurrence rule gives exactly this because its ids rise
 //    in scan order; with the explicit rule the result does not depend on
-//    the split count or the design.
+//    the split count, the chunking or the design.
 //
 // C interface, loaded with ctypes: vdb_flat_topk returns cudaGetLastError()
 // after its launches (or cudaErrorInvalidValue for arguments it refuses).
-// It allocates nothing: the caller passes outputs and candidate scratch.
+// It allocates nothing: the caller passes outputs, candidate lists and
+// the scratch vdb_flat_scratch_bytes asks for.
 
 #include <type_traits>
 
-#include "topk_common.cuh"
-
-#define CHUNK_ROWS 256         // big-k: rows between threshold checks
-#define MIN_KB 1024            // big-k: least width of the sorted best
-// big-k: widest sorted best kept in shared memory (2 x 8192 slots of 8
-// bytes = 128 KB a query); past it each block's regions are device-memory
-// scratch that the caller passes
-#define SMEM_MAX_KB 8192
+#include "radix_select.cuh"
 
 struct ScanArgs {
   const float* q;
@@ -101,11 +103,12 @@ struct ScanArgs {
   const float* sq;
   const float* mask;
   const float* scales;
-  int euclid, k, kb, rows_per_split;
-  float* cand_keys;
+  int euclid, k, rows_per_split;
+  int row_base;         // first row of the launch's range; `count` ends it
+  float* cand_keys;     // k <= 32: candidate lists
   int* cand_ids;
-  float* scratch_keys;  // big-k regions in device memory, or null
-  int* scratch_ids;
+  float* keys_out;      // k > 32: (Q, key_ld) key scratch, rows from row_base
+  int key_ld;
 };
 
 // Queries of this block's tile into shared memory (zeros past Q), and for
@@ -130,13 +133,65 @@ __device__ void load_queries(const ScanArgs& a, int q0, float* qs, float* qsum8)
   __syncthreads();
 }
 
-// k <= 32: per-warp sorted lists in registers. Candidates out:
-// (Q, splits * WARPS, k).
-template <int DT, int QT>
+#define TILE_ROWS 256
+#define STAGE_ROW 144                 // bytes of a staged row: 128 + 16 of pad
+#define KEY_STRIDE (TILE_ROWS + 4)    // floats of a query's keys in a tile
+
+// k > 32: the keys of rows [row0, r1) of one row tile, QT queries x
+// KEY_STRIDE floats in shared memory, into the key scratch in 16-byte runs
+// along rows (threads 64j .. 64j + 63 on the tile's 64 four-row groups).
+// RAW: K holds the tile's dot products, so tile_select's transforms come
+// first (int4 offset and scale, euclidean 2s - |x|^2, -inf for masked rows).
+template <int DT, int QT, bool RAW>
+__device__ __forceinline__ void store_keys(const ScanArgs& a, const float* K,
+                                           const float* qsum8, int q0, int row0, int r1) {
+  const int row = row0 + 4 * (threadIdx.x & 63);
+  if (row >= r1) return;
+  float scl[4], sqn[4];
+  bool live[4];
+#pragma unroll
+  for (int e = 0; e < 4; e++) {
+    const int r = row + e;
+    live[e] = r < r1 && (!RAW || !a.mask || __ldg(a.mask + r) > 0.5f);
+    scl[e] = (RAW && DT == DT_I4 && live[e]) ? __ldg(a.scales + r) : 1.f;
+    sqn[e] = (RAW && a.euclid && live[e]) ? __ldg(a.sq + r) : 0.f;
+  }
+  for (int t = threadIdx.x >> 6; t < QT && q0 + t < a.Q; t += THREADS / 64) {
+    const float4 v = lds4(K + t * KEY_STRIDE + (row - row0));
+    float x[4] = {v.x, v.y, v.z, v.w};
+    if (RAW) {
+      const float qs8 = DT == DT_I4 ? qsum8[t] : 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; e++) {
+        if (DT == DT_I4) x[e] = (x[e] - qs8) * scl[e];  // offset 8 folded out
+        if (a.euclid) x[e] = 2.f * x[e] - sqn[e];       // rank-equivalent L2 key
+        if (!live[e]) x[e] = neg_inf();
+      }
+    }
+    float* dst = a.keys_out + (size_t)(q0 + t) * a.key_ld + (row - a.row_base);
+    if (row + 4 <= r1) {
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; e++)
+        if (row + e < r1) dst[e] = x[e];
+    }
+  }
+}
+
+// The row loop: each warp takes every WARPS-th row of the split (with
+// STORE, of each tile of TILE_ROWS rows).
+//  * STORE false (k <= 32): per-warp sorted lists in registers.
+//    Candidates out: (Q, splits * WARPS, k).
+//  * STORE true (k > 32): lane t keeps query t's key of each row in shared
+//    memory (-inf for masked rows); after each tile the block writes the
+//    tile's keys to the key scratch (store_keys).
+template <int DT, int QT, bool STORE>
 __global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* qsum8 = smem + QT * a.d_pad;
+  extern __shared__ __align__(16) float lsmem[];
+  float* qs = lsmem;
+  float* qsum8 = lsmem + QT * a.d_pad;
+  float* Ks = qsum8 + 8;  // STORE: QT x KEY_STRIDE (16-byte aligned: d_pad % 4 == 0)
   const int q0 = blockIdx.x * QT;
   load_queries<DT, QT>(a, q0, qs, qsum8);
 
@@ -147,42 +202,63 @@ __global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
 #pragma unroll
   for (int t = 0; t < QT; t++) { val[t] = neg_inf(); thr[t] = neg_inf(); id[t] = 0; }
 
-  const int r0 = blockIdx.y * a.rows_per_split;
+  const int r0 = a.row_base + blockIdx.y * a.rows_per_split;
   const int r1 = min(a.count, r0 + a.rows_per_split);
   const int n_chunks = a.row_bytes / 16;
-  for (int r = r0 + warp; r < r1; r += WARPS) {
-    if (a.mask && __ldg(a.mask + r) <= 0.5f) continue;
-    const float scale = (DT == DT_I4) ? __ldg(a.scales + r) : 1.f;
-    const float sqn = a.euclid ? __ldg(a.sq + r) : 0.f;
-    float s[QT];
-    row_keys<DT, QT>(reinterpret_cast<const uint4*>(a.db + (size_t)r * a.row_bytes),
-                     n_chunks, qs, qsum8, a.d_pad, lane, scale, sqn, a.euclid, s);
+  // one pass over the split without STORE
+  for (int base = r0; base < r1; base += STORE ? TILE_ROWS : a.rows_per_split) {
+    const int end = STORE ? min(base + TILE_ROWS, r1) : r1;
+    for (int r = base + warp; r < end; r += WARPS) {
+      if (a.mask && __ldg(a.mask + r) <= 0.5f) {
+        if (STORE && lane < QT) Ks[lane * KEY_STRIDE + r - base] = neg_inf();
+        continue;
+      }
+      const float scale = (DT == DT_I4) ? __ldg(a.scales + r) : 1.f;
+      const float sqn = a.euclid ? __ldg(a.sq + r) : 0.f;
+      float s[QT];
+      row_keys<DT, QT>(reinterpret_cast<const uint4*>(a.db + (size_t)r * a.row_bytes),
+                       n_chunks, qs, qsum8, a.d_pad, lane, scale, sqn, a.euclid, s);
+      if constexpr (STORE) {
+        float mine = s[0];  // lane t keeps query t's key
 #pragma unroll
-    for (int t = 0; t < QT; t++) {
-      if (s[t] > thr[t]) {  // warp-uniform: every lane holds s[t] and thr[t]
-        // rows arrive in rising id order, so equal keys already held stay ahead
-        const int pos = __popc(__ballot_sync(FULL, lane < k && val[t] >= s[t]));
-        const float up_v = __shfl_up_sync(FULL, val[t], 1);
-        const int up_i = __shfl_up_sync(FULL, id[t], 1);
-        if (lane == pos) { val[t] = s[t]; id[t] = r; }
-        else if (lane > pos && lane < k) { val[t] = up_v; id[t] = up_i; }
-        thr[t] = __shfl_sync(FULL, val[t], k - 1);
+        for (int t = 1; t < QT; t++) if (lane == t) mine = s[t];
+        if (lane < QT) Ks[lane * KEY_STRIDE + r - base] = mine;
+      } else {
+#pragma unroll
+        for (int t = 0; t < QT; t++) {
+          if (s[t] > thr[t]) {  // warp-uniform: every lane holds s[t] and thr[t]
+            // rows arrive in rising id order, so equal keys already held stay ahead
+            const int pos = __popc(__ballot_sync(FULL, lane < k && val[t] >= s[t]));
+            const float up_v = __shfl_up_sync(FULL, val[t], 1);
+            const int up_i = __shfl_up_sync(FULL, id[t], 1);
+            if (lane == pos) { val[t] = s[t]; id[t] = r; }
+            else if (lane > pos && lane < k) { val[t] = up_v; id[t] = up_i; }
+            thr[t] = __shfl_sync(FULL, val[t], k - 1);
+          }
+        }
       }
     }
+    if constexpr (STORE) {
+      __syncthreads();
+      store_keys<DT, QT, false>(a, Ks, qsum8, q0, base, end);
+      __syncthreads();
+    }
   }
-  const int n_lists = gridDim.y * WARPS;
-  const int slot = blockIdx.y * WARPS + warp;
+  if constexpr (!STORE) {
+    const int n_lists = gridDim.y * WARPS;
+    const int slot = blockIdx.y * WARPS + warp;
 #pragma unroll
-  for (int t = 0; t < QT; t++) {
-    if (q0 + t < a.Q && lane < k) {
-      const size_t o = ((size_t)(q0 + t) * n_lists + slot) * k + lane;
-      a.cand_keys[o] = val[t];
-      a.cand_ids[o] = id[t];
+    for (int t = 0; t < QT; t++) {
+      if (q0 + t < a.Q && lane < k) {
+        const size_t o = ((size_t)(q0 + t) * n_lists + slot) * k + lane;
+        a.cand_keys[o] = val[t];
+        a.cand_ids[o] = id[t];
+      }
     }
   }
 }
 
-// ---- k <= 32, larger Q: the tile design ----
+// ---- larger Q: the tile design ----
 //
 // A block of 8 warps scores a tile of QT queries against its split's rows,
 // TILE_ROWS at a time, in chunks of each row: 32 f32 or 64 bf16 components
@@ -190,10 +266,6 @@ __global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
 // memory: a ring of tile_stages slots of [QT query rows | TILE_ROWS stored
 // rows], the tile's keys (QT x KEY_STRIDE f32) and per query 8 * sum(q)
 // (int4).
-
-#define TILE_ROWS 256
-#define STAGE_ROW 144                 // bytes of a staged row: 128 + 16 of pad
-#define KEY_STRIDE (TILE_ROWS + 4)    // floats of a query's keys in a tile
 
 // bytes of one stored row that one stage copies
 template <int DT>
@@ -500,8 +572,10 @@ __device__ __forceinline__ void tile_select(const ScanArgs& a, const float* K,
   }
 }
 
-// Candidates out: (Q, splits, k), one list per (block, query).
-template <int DT, int QT>
+// STORE false (k <= 32): candidates out (Q, splits, k), one list per
+// (block, query). STORE true (k > 32): each row tile's keys to the key
+// scratch (store_keys).
+template <int DT, int QT, bool STORE>
 __global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
   extern __shared__ __align__(16) uint8_t tsmem[];
   constexpr int SLOT = slot_bytes<DT, QT>();
@@ -511,7 +585,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
   float* qsum8 = K + QT * KEY_STRIDE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * QT;
-  const int r0 = blockIdx.y * a.rows_per_split;
+  const int r0 = a.row_base + blockIdx.y * a.rows_per_split;
   const int r1 = min(a.count, r0 + a.rows_per_split);
   const int n_tiles = r1 > r0 ? (r1 - r0 + TILE_ROWS - 1) / TILE_ROWS : 0;
   const int n_chunks = a.d_pad / stage_comps<DT>();
@@ -554,229 +628,206 @@ __global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
     if (c == n_chunks - 1) {
       tile.store(K, warp, lane);
       __syncthreads();
-      tile_select<DT, QW>(a, K, qsum8, r0 + t * TILE_ROWS, r1, warp, lane, val, id);
+      if constexpr (STORE)
+        store_keys<DT, QT, true>(a, K, qsum8, q0, r0 + t * TILE_ROWS, r1);
+      else
+        tile_select<DT, QW>(a, K, qsum8, r0 + t * TILE_ROWS, r1, warp, lane, val, id);
     }
   }
+  if constexpr (!STORE) {
 #pragma unroll
-  for (int j = 0; j < QW; j++) {
-    const int qq = q0 + warp * QW + j;
-    if (qq < a.Q && lane < a.k) {
-      const size_t o = ((size_t)qq * gridDim.y + blockIdx.y) * a.k + lane;
-      a.cand_keys[o] = val[j];
-      a.cand_ids[o] = id[j];
+    for (int j = 0; j < QW; j++) {
+      const int qq = q0 + warp * QW + j;
+      if (qq < a.Q && lane < a.k) {
+        const size_t o = ((size_t)qq * gridDim.y + blockIdx.y) * a.k + lane;
+        a.cand_keys[o] = val[j];
+        a.cand_ids[o] = id[j];
+      }
     }
   }
 }
 
-// k > 32: per query a region of L = 2*KB (key, id) slots, KB =
-// max(next_pow2(k), MIN_KB): [0, KB) the sorted best, [KB, 2*KB)
-// candidates above the threshold, sorted in once more than KB - CHUNK_ROWS
-// have collected. The regions live in shared memory up to KB =
-// SMEM_MAX_KB, else in the caller's device-memory scratch, QT regions per
-// block. Candidates out: (Q, splits, k).
-template <int DT, int QT>
-__global__ void __launch_bounds__(THREADS) scan_big_k(ScanArgs a) {
-  extern __shared__ float smem[];
-  const int KB = a.kb, L = 2 * a.kb;
-  float* qs = smem;
-  float* qsum8 = qs + QT * a.d_pad;
-  float* thr = qsum8 + QT;
-  int* cnt = reinterpret_cast<int*>(thr + QT);
-  float* K;
-  int* I;
-  if (a.scratch_keys) {
-    const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    K = a.scratch_keys + block * QT * L;
-    I = a.scratch_ids + block * QT * L;
-  } else {
-    K = reinterpret_cast<float*>(cnt + QT);
-    I = reinterpret_cast<int*>(K + QT * L);
-  }
-  const int q0 = blockIdx.x * QT;
-  for (int i = threadIdx.x; i < QT * L; i += THREADS) { K[i] = neg_inf(); I[i] = NO_ID; }
-  if (threadIdx.x < QT) { thr[threadIdx.x] = neg_inf(); cnt[threadIdx.x] = 0; }
-  load_queries<DT, QT>(a, q0, qs, qsum8);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.y * a.rows_per_split;
-  const int r1 = min(a.count, r0 + a.rows_per_split);
-  const int n_chunks = a.row_bytes / 16;
-  for (int base = r0; base < r1; base += CHUNK_ROWS) {
-    const int end = min(base + CHUNK_ROWS, r1);
-    for (int r = base + warp; r < end; r += WARPS) {
-      if (a.mask && __ldg(a.mask + r) <= 0.5f) continue;
-      const float scale = (DT == DT_I4) ? __ldg(a.scales + r) : 1.f;
-      const float sqn = a.euclid ? __ldg(a.sq + r) : 0.f;
-      float s[QT];
-      row_keys<DT, QT>(reinterpret_cast<const uint4*>(a.db + (size_t)r * a.row_bytes),
-                       n_chunks, qs, qsum8, a.d_pad, lane, scale, sqn, a.euclid, s);
-      float mine = s[0];  // lane t appends for query t
-#pragma unroll
-      for (int t = 1; t < QT; t++) if (lane == t) mine = s[t];
-      if (lane < QT && mine > thr[lane]) {
-        const int p = atomicAdd(&cnt[lane], 1);
-        K[(size_t)lane * L + KB + p] = mine;
-        I[(size_t)lane * L + KB + p] = r;
-      }
-    }
-    __syncthreads();
-    bool full = false;
-    for (int t = 0; t < QT; t++) full |= cnt[t] > KB - CHUNK_ROWS;
-    const bool last = end >= r1;
-    bool any = false;
-    for (int t = 0; t < QT; t++) any |= cnt[t] > 0;
-    __syncthreads();
-    if (full || (last && any)) {
-      bitonic_sort(K, I, QT, L);
-      for (int i = threadIdx.x; i < QT * KB; i += THREADS) {
-        const int t = i / KB, j = i - t * KB;
-        K[(size_t)t * L + KB + j] = neg_inf();
-        I[(size_t)t * L + KB + j] = NO_ID;
-      }
-      if (threadIdx.x < QT) {
-        cnt[threadIdx.x] = 0;
-        thr[threadIdx.x] = K[(size_t)threadIdx.x * L + a.k - 1];
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < QT * a.k; i += THREADS) {
-    const int t = i / a.k, j = i - t * a.k;
-    if (q0 + t < a.Q) {
-      const size_t o = ((size_t)(q0 + t) * gridDim.y + blockIdx.y) * a.k + j;
-      a.cand_keys[o] = K[(size_t)t * L + j];
-      a.cand_ids[o] = I[(size_t)t * L + j];
-    }
-  }
-}
-
-static int big_kb(int k) { return next_pow2(k) > MIN_KB ? next_pow2(k) : MIN_KB; }
-
-static size_t scan_smem_bytes(int qt, int d_pad, int big, int kb) {
-  size_t b = (size_t)qt * d_pad * 4 + (size_t)qt * 4;
-  if (big) {
-    b += (size_t)qt * 8;
-    if (kb <= SMEM_MAX_KB) b += (size_t)qt * 2 * kb * 8;
-  }
-  return b;
-}
-
-template <int DT, int QT>
-static cudaError_t launch_scan(const ScanArgs& a, int splits, int big, cudaStream_t st) {
-  const size_t smem = scan_smem_bytes(QT, a.d_pad, big, a.kb);
+template <int DT, int QT, bool STORE>
+static cudaError_t launch_loop(const ScanArgs& a, int splits, cudaStream_t st) {
+  const size_t smem = (size_t)QT * a.d_pad * 4 + 32 + (STORE ? (size_t)QT * KEY_STRIDE * 4 : 0);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const dim3 grid((a.Q + QT - 1) / QT, splits);
-  if (big) {
-    cudaFuncSetAttribute(scan_big_k<DT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    scan_big_k<DT, QT><<<grid, THREADS, smem, st>>>(a);
-  } else {
-    cudaFuncSetAttribute(scan_small_k<DT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    scan_small_k<DT, QT><<<grid, THREADS, smem, st>>>(a);
-  }
+  cudaFuncSetAttribute(scan_small_k<DT, QT, STORE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  scan_small_k<DT, QT, STORE><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int DT, int QT>
+template <int DT, int QT, bool STORE>
 static cudaError_t launch_tile(const ScanArgs& a, int splits, cudaStream_t st) {
   constexpr size_t smem = tile_smem_bytes<DT, QT>();
   static_assert(smem <= MAX_SMEM, "tile does not fit in shared memory");
   if (a.d_pad % stage_comps<DT>() || (DT != DT_F32 && !a.q16)) return cudaErrorInvalidValue;
   const dim3 grid((a.Q + QT - 1) / QT, splits);
-  cudaFuncSetAttribute(scan_small_k_tile<DT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  scan_small_k_tile<DT, QT><<<grid, THREADS, smem, st>>>(a);
+  cudaFuncSetAttribute(scan_small_k_tile<DT, QT, STORE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  scan_small_k_tile<DT, QT, STORE><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// qt 1..8: scan_small_k / scan_big_k; tile: scan_small_k_tile, f32 at qt
-// 16, 32 or 64, the tensor-core types at 64.
-template <int DT>
-static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int big, int tile,
-                             cudaStream_t st) {
+// The scoring launch: qt 1..8 the row loop scan_small_k; tile:
+// scan_small_k_tile, f32 at qt 16, 32 or 64, the tensor-core types at 64.
+template <int DT, bool STORE>
+static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int tile, cudaStream_t st) {
   if (tile) {
-    if (big) return cudaErrorInvalidValue;
     if constexpr (DT != DT_F32) {
-      return qt == 64 ? launch_tile<DT, 64>(a, splits, st) : cudaErrorInvalidValue;
+      return qt == 64 ? launch_tile<DT, 64, STORE>(a, splits, st) : cudaErrorInvalidValue;
     } else {
       switch (qt) {
-        case 16: return launch_tile<DT, 16>(a, splits, st);
-        case 32: return launch_tile<DT, 32>(a, splits, st);
-        case 64: return launch_tile<DT, 64>(a, splits, st);
+        case 16: return launch_tile<DT, 16, STORE>(a, splits, st);
+        case 32: return launch_tile<DT, 32, STORE>(a, splits, st);
+        case 64: return launch_tile<DT, 64, STORE>(a, splits, st);
         default: return cudaErrorInvalidValue;
       }
     }
   }
   switch (qt) {
-    case 1: return launch_scan<DT, 1>(a, splits, big, st);
-    case 2: return launch_scan<DT, 2>(a, splits, big, st);
-    case 4: return launch_scan<DT, 4>(a, splits, big, st);
-    case 8: return launch_scan<DT, 8>(a, splits, big, st);
+    case 1: return launch_loop<DT, 1, STORE>(a, splits, st);
+    case 2: return launch_loop<DT, 2, STORE>(a, splits, st);
+    case 4: return launch_loop<DT, 4, STORE>(a, splits, st);
+    case 8: return launch_loop<DT, 8, STORE>(a, splits, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// (key, id) slots of device-memory scratch vdb_flat_topk needs: the big-k
-// regions when they do not fit in shared memory, then the merge's working
-// areas when they do not. 0 when everything fits.
-static size_t scan_scratch_slots(int Q, int qt, int splits, int k) {
-  const int kb = big_kb(k);
-  if (k <= 32 || kb <= SMEM_MAX_KB) return 0;
-  return (size_t)((Q + qt - 1) / qt) * splits * qt * 2 * kb;
+template <bool STORE>
+static cudaError_t launch_scoring(const ScanArgs& a, int dtype, int qt, int splits, int tile,
+                                  cudaStream_t st) {
+  switch (dtype) {
+    case DT_F32: return launch_dt<DT_F32, STORE>(a, qt, splits, tile, st);
+    case DT_BF16: return launch_dt<DT_BF16, STORE>(a, qt, splits, tile, st);
+    case DT_I8: return launch_dt<DT_I8, STORE>(a, qt, splits, tile, st);
+    case DT_I4: return launch_dt<DT_I4, STORE>(a, qt, splits, tile, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-static size_t merge_scratch_slots(int Q, int k) {
-  return merge_len(k) > MERGE_SMEM_MAX_LEN ? (size_t)Q * merge_len(k) : 0;
+// ---- k > 32: scratch in device memory, one buffer the caller passes ----
+//
+// [key scratch (Q, chunk_rows) f32 | h1 h2 h3 cnt (zeroed per chunk) |
+//  per-block last-digit counts | survivors (keys, ids) | merge areas when
+//  there are several chunks and merge_len(k) > MERGE_SMEM_MAX_LEN], each
+// part 256-byte aligned.
+struct BigScratch {
+  size_t keys, zero, zero_bytes, bh, surv_keys, surv_ids, merge_keys, merge_ids, total;
+};
+
+static size_t align256(size_t b) { return (b + 255) & ~(size_t)255; }
+
+static int n_chunks_of(int count, int chunk_rows) {
+  return count > chunk_rows ? (count + chunk_rows - 1) / chunk_rows : 1;
 }
 
-extern "C" long long vdb_flat_scratch_slots(int Q, int qt, int splits, int k) {
-  return (long long)(scan_scratch_slots(Q, qt, splits, k) + merge_scratch_slots(Q, k));
+static BigScratch big_scratch(int Q, int k, int chunk_rows, int n_chunks) {
+  BigScratch b;
+  size_t o = 0;
+  auto take = [&](size_t bytes) { const size_t at = o; o += align256(bytes); return at; };
+  b.keys = take((size_t)Q * chunk_rows * 4);
+  b.zero_bytes = (size_t)Q * (2 * SEL_BINS + SEL_BINS3 + 1) * 4;
+  b.zero = take(b.zero_bytes);
+  b.bh = take((size_t)Q * sel_blocks(Q, chunk_rows) * SEL_BINS3 * 4);
+  b.surv_keys = take((size_t)Q * surv_ld(k) * 4);
+  b.surv_ids = take((size_t)Q * surv_ld(k) * 4);
+  const bool merge_global = n_chunks > 1 && merge_len(k) > MERGE_SMEM_MAX_LEN;
+  b.merge_keys = take(merge_global ? (size_t)Q * merge_len(k) * 4 : 0);
+  b.merge_ids = take(merge_global ? (size_t)Q * merge_len(k) * 4 : 0);
+  b.total = o;
+  return b;
+}
+
+// Bytes of scratch vdb_flat_topk needs: 0 for k <= 32 (its merge fits in
+// shared memory).
+extern "C" long long vdb_flat_scratch_bytes(int Q, int k, int count, int chunk_rows) {
+  if (k <= 32 || Q < 1 || chunk_rows < 1) return 0;
+  return (long long)big_scratch(Q, k, chunk_rows, n_chunks_of(count, chunk_rows)).total;
 }
 
 // q: (Q, d_pad) f32, already rounded to the storage type's query precision;
 // q16: the same as bf16 (read by the tile design for bf16/int8/int4 rows,
 // else may be null). db: (>= count, row_bytes) rows of dtype (0 f32, 1
 // bf16, 2 int8, 3 int4). sq / mask / scales: per-row f32 or null. tile: 1
-// for scan_small_k_tile (k <= 32). cand_*: (Q, n_lists, k) scratch; the
-// launch is refused unless n_lists is what the scan writes: splits * WARPS
-// for scan_small_k, else splits. out_*: (Q, k).
-// scratch_*: vdb_flat_scratch_slots(Q, qt, splits, k) slots, or null when
-// that is 0.
+// for scan_small_k_tile. out_*: (Q, k).
+//  * k <= 32: cand_*: (Q, n_lists, k); the launch is refused unless n_lists
+//    is what the scan writes: splits * WARPS for the row loop, else splits.
+//  * k > 32: the rows are scored and selected in chunks of chunk_rows (a
+//    multiple of TILE_ROWS; rows_per_split a multiple of 4), and n_lists
+//    must be the number of chunks; cand_* (Q, n_lists, k) hold the chunks'
+//    lists when there are several (else may be null). scratch:
+//    vdb_flat_scratch_bytes(Q, k, count, chunk_rows) bytes.
 extern "C" int vdb_flat_topk(const float* q, const uint16_t* q16, int Q, int d_pad,
                              const void* db, int dtype, int row_bytes, int count,
                              const float* sq, const float* mask, const float* scales,
                              int euclid, int k, int qt, int tile, int splits,
-                             int rows_per_split, int n_lists, float* cand_keys,
-                             int* cand_ids, float* out_keys, int* out_ids,
-                             float* scratch_keys, int* scratch_ids, void* stream) {
+                             int rows_per_split, int n_lists, int chunk_rows,
+                             float* cand_keys, int* cand_ids, float* out_keys, int* out_ids,
+                             void* scratch, void* stream) {
   const int big = k > 32;
-  if (k < 1 || Q < 1 || splits < 1 || row_bytes % 16 ||
-      n_lists != ((big || tile) ? splits : splits * WARPS) ||
-      (euclid && !sq) || (dtype == DT_I4 && !scales) ||
-      (vdb_flat_scratch_slots(Q, qt, splits, k) && (!scratch_keys || !scratch_ids)))
+  if (count < 0) count = 0;
+  if (k < 1 || Q < 1 || splits < 1 || row_bytes % 16 || (euclid && !sq) ||
+      (dtype == DT_I4 && !scales))
     return cudaErrorInvalidValue;
-  const size_t scan_slots = scan_scratch_slots(Q, qt, splits, k);
+  if (big ? (chunk_rows < 1 || chunk_rows % TILE_ROWS || rows_per_split % 4 ||
+             (long long)splits * rows_per_split < (count < chunk_rows ? count : chunk_rows) ||
+             n_lists != n_chunks_of(count, chunk_rows) || !scratch ||
+             (n_lists > 1 && (!cand_keys || !cand_ids)))
+          : n_lists != (tile ? splits : splits * WARPS))
+    return cudaErrorInvalidValue;
   ScanArgs a;
   a.q = q; a.q16 = q16; a.Q = Q; a.d_pad = d_pad;
   a.db = static_cast<const uint8_t*>(db);
   a.row_bytes = row_bytes; a.count = count;
   a.sq = sq; a.mask = mask; a.scales = scales;
   a.euclid = euclid; a.k = k;
-  a.kb = big_kb(k);
   a.rows_per_split = rows_per_split;
+  a.row_base = 0;
   a.cand_keys = cand_keys; a.cand_ids = cand_ids;
-  a.scratch_keys = scan_slots ? scratch_keys : nullptr;
-  a.scratch_ids = scan_slots ? scratch_ids : nullptr;
+  a.keys_out = nullptr; a.key_ld = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (dtype) {
-    case DT_F32: err = launch_dt<DT_F32>(a, qt, splits, big, tile, st); break;
-    case DT_BF16: err = launch_dt<DT_BF16>(a, qt, splits, big, tile, st); break;
-    case DT_I8: err = launch_dt<DT_I8>(a, qt, splits, big, tile, st); break;
-    case DT_I4: err = launch_dt<DT_I4>(a, qt, splits, big, tile, st); break;
-    default: return cudaErrorInvalidValue;
+  if (!big) {
+    err = launch_scoring<false>(a, dtype, qt, splits, tile, st);
+    if (err != cudaSuccess) return err;
+    return launch_merge(cand_keys, cand_ids, Q, n_lists * k, k, nullptr, nullptr, out_keys,
+                        out_ids, 0, st);
   }
-  if (err != cudaSuccess) return err;
+  const BigScratch b = big_scratch(Q, k, chunk_rows, n_lists);
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  a.keys_out = reinterpret_cast<float*>(base + b.keys);
+  a.key_ld = chunk_rows;
+  SelArgs s;
+  s.keys = a.keys_out; s.Q = Q; s.ld = chunk_rows; s.k = k;
+  s.sb = sel_blocks(Q, chunk_rows);
+  s.h1 = reinterpret_cast<int*>(base + b.zero);
+  s.h2 = s.h1 + (size_t)Q * SEL_BINS;
+  s.h3 = s.h2 + (size_t)Q * SEL_BINS;
+  s.cnt = s.h3 + (size_t)Q * SEL_BINS3;
+  s.bh = reinterpret_cast<int*>(base + b.bh);
+  s.surv_keys = reinterpret_cast<float*>(base + b.surv_keys);
+  s.surv_ids = reinterpret_cast<int*>(base + b.surv_ids);
+  s.surv_ld = surv_ld(k);
+  for (int c = 0; c < n_lists; c++) {
+    a.row_base = c * chunk_rows;
+    a.count = count < a.row_base + chunk_rows ? count : a.row_base + chunk_rows;
+    s.row_base = a.row_base;
+    s.n = a.count - a.row_base;
+    err = cudaMemsetAsync(base + b.zero, 0, b.zero_bytes, st);
+    if (err != cudaSuccess) return err;
+    err = launch_scoring<true>(a, dtype, qt, splits, tile, st);
+    if (err != cudaSuccess) return err;
+    err = n_lists == 1 ? launch_select(s, out_keys, out_ids, k, st)
+                       : launch_select(s, cand_keys + (size_t)c * k, cand_ids + (size_t)c * k,
+                                       n_lists * k, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (n_lists == 1) return cudaSuccess;
+  const bool merge_global = merge_len(k) > MERGE_SMEM_MAX_LEN;
   return launch_merge(cand_keys, cand_ids, Q, n_lists * k, k,
-                      scratch_keys ? scratch_keys + scan_slots : nullptr,
-                      scratch_ids ? scratch_ids + scan_slots : nullptr,
+                      merge_global ? reinterpret_cast<float*>(base + b.merge_keys) : nullptr,
+                      merge_global ? reinterpret_cast<int*>(base + b.merge_ids) : nullptr,
                       out_keys, out_ids, 0, st);
 }

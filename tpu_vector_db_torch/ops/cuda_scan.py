@@ -10,7 +10,11 @@ with the same contract. The kernels are ``csrc/flat_topk.cu``:
   tiles of 256 rows against up to 64 queries, f32 by register-tiled FFMA
   and bf16/int8/int4 on the tensor cores (``scan_small_k_tile``). Both
   count as one ``scan_kernel`` launch;
-* ``scan_kernel_bigk`` (k > 32) replaces ``_scan_kernel_bigk``. The TPU
+* ``scan_kernel_bigk`` (k > 32) replaces ``_scan_kernel_bigk``: the same
+  two scoring designs, picked by the same rule, write each query's keys
+  to a key scratch in device memory, and a radix select takes the exact
+  top-k (``csrc/radix_select.cuh``). Past ``KEY_SCRATCH_BYTES`` of keys
+  the rows go in chunks whose top-k lists a merge combines. The TPU
   kernel stops at k = 1024, where the JAX store turns to its XLA scan;
   this kernel takes any k, so the store serves every k on the card.
 
@@ -44,21 +48,21 @@ MAX_K_SMALL = 32      # scan_kernel: per-warp register lists
 # crossover lines time both designs at batch 2-16). f32: up to batch 8 the
 # row loop reads the rows once and is bound by bytes, as the tile is by
 # its CUDA-core operations; from batch 9 the loop reads them twice. The
-# tensor-core tile is faster than the loop from batch 2.
+# tensor-core tile is faster than the loop from batch 2. k > 32 scores by
+# the same rule.
 TILE_MIN_Q = {torch.float32: 9, torch.bfloat16: 2, torch.int8: 2,
               torch.uint8: 2}
+# k > 32: most bytes of the (Q, rows) f32 key scratch one launch writes;
+# past it the rows are scored and selected in chunks
+KEY_SCRATCH_BYTES = 512 << 20
 _MAX_SMEM = 232448    # dynamic shared memory a block may use on sm_90
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.uint8: 3}
-# row loop (scan_small_k, scan_big_k): blocks the partial pass aims for, a
-# few per SM on the 132 SMs
-_TARGET_BLOCKS = {False: 528, True: 264}
-# big-k: a split scans at least 4*k rows, so that a large k does not send
-# (nearly) every row of a short split on to the merge
-_MIN_ROWS_PER_SPLIT = {False: 1024, True: 4096}
-_BIG_ROWS_PER_K = 4
+# row loop (scan_small_k): blocks the launch aims for, a few per SM on the
+# 132 SMs, and the least rows of a split
+_TARGET_BLOCKS = 528
+_MIN_ROWS_PER_SPLIT = 1024
 _WARPS = 8            # warps of a scan block (csrc/topk_common.cuh)
-_MIN_KB, _SMEM_MAX_KB = 1024, 8192   # big-k sorted best (csrc/flat_topk.cu)
 # tile design (csrc/flat_topk.cu): rows per tile, query tiles per type;
 # one block per SM (its shared memory), so a launch aims at one per SM
 _TILE_ROWS = 256
@@ -71,72 +75,87 @@ _TILE_COMPS_MMA = 64
 
 
 class LaunchPlan(NamedTuple):
-    """How ``flat_topk`` launches: ``design`` "loop" (scan_small_k), "tile"
-    (scan_small_k_tile) or "big" (scan_big_k), queries per block ``qt``,
-    ``splits`` row ranges of ``rows_per_split`` rows, and the candidate
-    lists per query the scan writes for the merge (``n_lists``)."""
+    """How ``flat_topk`` launches: scoring ``design`` "loop"
+    (scan_small_k) or "tile" (scan_small_k_tile), queries per block
+    ``qt``, ``splits`` row ranges of ``rows_per_split`` rows, and the
+    candidate lists per query the merge combines (``n_lists``). k > 32:
+    rows are scored and selected ``chunk_rows`` at a time (a key scratch
+    of Q x chunk_rows f32), one list per chunk; 0 for k <= 32."""
     design: str
     qt: int
     splits: int
     rows_per_split: int
     n_lists: int
+    chunk_rows: int
 
 
-def _loop_smem_bytes(qt: int, d_pad: int, big: bool, k: int) -> int:
-    """Shared memory of scan_small_k / scan_big_k (csrc/flat_topk.cu
-    ``scan_smem_bytes``)."""
-    b = qt * d_pad * 4 + qt * 4
-    if big:
-        kb = max(1 << max(0, (k - 1).bit_length()), _MIN_KB)
-        b += qt * 8 + (qt * 2 * kb * 8 if kb <= _SMEM_MAX_KB else 0)
-    return b
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _loop_smem_bytes(qt: int, d_pad: int, store: bool) -> int:
+    """Shared memory of scan_small_k (csrc/flat_topk.cu ``launch_loop``):
+    the queries, 8 * sum(q), and with ``store`` a tile's keys."""
+    return qt * d_pad * 4 + 32 + (qt * (_TILE_ROWS + 4) * 4 if store else 0)
+
+
+def _chunk_rows(q_n: int, count: int, budget: int) -> int:
+    """k > 32: rows a launch scores, whole row tiles, so that the key
+    scratch (q_n x rows f32) stays within ``budget`` bytes."""
+    fit = max(1, budget // (4 * q_n) // _TILE_ROWS) * _TILE_ROWS
+    return min(fit, _cdiv(max(count, 1), _TILE_ROWS) * _TILE_ROWS)
 
 
 def _launch_plan(q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
-                 count: int, n_sm: int = 132) -> LaunchPlan:
-    """The design and launch shape for a call: big-k past MAX_K_SMALL; the
-    tile from TILE_MIN_Q queries of the row type (d_pad a multiple of its
-    stage); else the row loop."""
-    if k > MAX_K_SMALL:
-        design = "big"
-    elif q_n >= TILE_MIN_Q[db_dtype] and d_pad % _TILE_COMPS.get(
+                 count: int, n_sm: int = 132,
+                 budget: int = KEY_SCRATCH_BYTES) -> LaunchPlan:
+    """The scoring design and launch shape for a call: the tile from
+    TILE_MIN_Q queries of the row type (d_pad a multiple of its stage),
+    else the row loop; past MAX_K_SMALL the keys go to the radix select,
+    in chunks that keep the key scratch within ``budget`` bytes."""
+    if q_n >= TILE_MIN_Q[db_dtype] and d_pad % _TILE_COMPS.get(
             db_dtype, _TILE_COMPS_MMA) == 0:
         design = "tile"
     else:
         design = "loop"
-    return _plan(design, q_n, db_dtype, d_pad, k, count, n_sm)
+    return _plan(design, q_n, db_dtype, d_pad, k, count, n_sm, budget)
 
 
 def _plan(design: str, q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
-          count: int, n_sm: int = 132) -> LaunchPlan:
-    """The launch shape of one design (``_launch_plan`` picks the design;
-    chip_smoke.py's crossover lines time both at the same batch)."""
+          count: int, n_sm: int = 132,
+          budget: int = KEY_SCRATCH_BYTES) -> LaunchPlan:
+    """The launch shape of one scoring design (``_launch_plan`` picks the
+    design; chip_smoke.py's crossover lines time both at the same
+    batch)."""
     count = max(0, count)
+    chunk = _chunk_rows(q_n, count, budget) if k > MAX_K_SMALL else 0
+    rows = min(count, chunk) if chunk else count  # rows of one launch
+    n_chunks = max(1, _cdiv(count, chunk)) if chunk else 0
     if design == "tile":
         sizes = _TILE_QT.get(db_dtype, _TILE_QT_MMA)
         qt = next((c for c in sizes if c >= q_n), sizes[-1])
-        tiles = -(-q_n // qt)
-        splits = max(1, min(-(-n_sm // tiles), -(-count // _TILE_ROWS)))
-        rows = max(1, -(-count // splits))
-        rows_per_split = -(-rows // _TILE_ROWS) * _TILE_ROWS
-        splits = max(1, -(-count // rows_per_split))
-        return LaunchPlan(design, qt, splits, rows_per_split, splits)
-    big = design == "big"
+        tiles = _cdiv(q_n, qt)
+        splits = max(1, min(_cdiv(n_sm, tiles), _cdiv(rows, _TILE_ROWS)))
+        rows_per_split = _cdiv(max(1, _cdiv(rows, splits)),
+                               _TILE_ROWS) * _TILE_ROWS
+        splits = max(1, _cdiv(rows, rows_per_split))
+        return LaunchPlan(design, qt, splits, rows_per_split,
+                          n_chunks or splits, chunk)
     qt = 1
     for cand in (8, 4, 2):
-        if cand < 2 * q_n and _loop_smem_bytes(cand, d_pad, big, k) \
+        if cand < 2 * q_n and _loop_smem_bytes(cand, d_pad, bool(chunk)) \
                 <= _MAX_SMEM:
             qt = cand
             break
-    tiles = -(-q_n // qt)
-    min_rows = max(_MIN_ROWS_PER_SPLIT[big], _BIG_ROWS_PER_K * k if big
-                   else 0)
-    splits = max(1, min(-(-_TARGET_BLOCKS[big] // tiles),
-                        -(-count // min_rows)))
-    rows_per_split = max(1, -(-count // splits))
-    splits = max(1, -(-count // rows_per_split))
+    tiles = _cdiv(q_n, qt)
+    splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles),
+                        _cdiv(rows, _MIN_ROWS_PER_SPLIT)))
+    rows_per_split = max(1, _cdiv(rows, splits))
+    if chunk:   # whole row tiles: the keys go out in 16-byte runs
+        rows_per_split = _cdiv(rows_per_split, _TILE_ROWS) * _TILE_ROWS
+    splits = max(1, _cdiv(rows, rows_per_split))
     return LaunchPlan(design, qt, splits, rows_per_split,
-                      splits if big else splits * _WARPS)
+                      n_chunks or splits * _WARPS, chunk)
 
 
 _lib_lock = threading.Lock()
@@ -155,11 +174,11 @@ def _library() -> ctypes.CDLL:
             lib = _build.load("flat_topk")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vdb_flat_topk.argtypes = [
-                p, p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, i, i, p, p,
+                p, p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, i, i, i, p,
                 p, p, p, p, p]
             lib.vdb_flat_topk.restype = i
-            lib.vdb_flat_scratch_slots.argtypes = [i, i, i, i]
-            lib.vdb_flat_scratch_slots.restype = ctypes.c_longlong
+            lib.vdb_flat_scratch_bytes.argtypes = [i, i, i, i]
+            lib.vdb_flat_scratch_bytes.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 
@@ -229,8 +248,9 @@ def _f32_on(t, device, n):
 
 def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
             db_scales, plan: LaunchPlan | None = None):
-    """One launch of the scan + merge on db's card, shaped by ``plan``
-    (``_launch_plan``'s when None)."""
+    """One call of the kernel on db's card (scan + merge for k <= 32,
+    scan + select per chunk, and a merge of several chunks, for k > 32),
+    shaped by ``plan`` (``_launch_plan``'s when None)."""
     if torch.cuda.get_device_capability(db.device) != (9, 0):
         raise RuntimeError(
             "csrc/flat_topk.cu is built for sm_90a (Hopper); device "
@@ -262,18 +282,19 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     mask = _f32_on(filter_mask, dev, count)
     scales = _f32_on(db_scales, dev, count)
 
-    cand_keys = torch.empty((q_n, plan.n_lists, k), dtype=torch.float32,
-                            device=dev)
-    cand_ids = torch.empty((q_n, plan.n_lists, k), dtype=torch.int32,
-                           device=dev)
+    # k <= 32: the splits' lists; k > 32: the chunks' lists, when several
+    cand_keys = cand_ids = None
+    if plan.chunk_rows == 0 or plan.n_lists > 1:
+        cand_keys = torch.empty((q_n, plan.n_lists, k), dtype=torch.float32,
+                                device=dev)
+        cand_ids = torch.empty((q_n, plan.n_lists, k), dtype=torch.int32,
+                               device=dev)
     keys = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((q_n, k), dtype=torch.int32, device=dev)
-    # device-memory scratch for k > 8192 (big-k regions, merge areas)
-    slots = lib.vdb_flat_scratch_slots(q_n, plan.qt, plan.splits, k)
-    scratch_keys = scratch_ids = None
-    if slots:
-        scratch_keys = torch.empty(slots, dtype=torch.float32, device=dev)
-        scratch_ids = torch.empty(slots, dtype=torch.int32, device=dev)
+    # k > 32: key scratch, histograms, survivors (and merge areas)
+    n_bytes = lib.vdb_flat_scratch_bytes(q_n, k, count, plan.chunk_rows)
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev) \
+        if n_bytes else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -284,9 +305,9 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
             ptr(q), ptr(q16), q_n, d_pad, ptr(db), _DTYPE_CODES[db.dtype],
             row_bytes, count, ptr(sq), ptr(mask), ptr(scales), int(euclid),
             k, plan.qt, int(plan.design == "tile"), plan.splits,
-            plan.rows_per_split, plan.n_lists, ptr(cand_keys),
-            ptr(cand_ids), ptr(keys), ptr(ids), ptr(scratch_keys),
-            ptr(scratch_ids), stream)
+            plan.rows_per_split, plan.n_lists, plan.chunk_rows,
+            ptr(cand_keys), ptr(cand_ids), ptr(keys), ptr(ids),
+            ptr(scratch), stream)
     if err != 0:
         raise RuntimeError(f"flat_topk kernel failed: CUDA error {err}")
     record(kernel_name(k))
