@@ -5,7 +5,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 
 1. prints the card (``nvidia-smi``), the torch and CUDA versions, and
    builds the kernels of ``tpu_vector_db_torch/csrc`` with nvcc, one
-   nvcc per source, all at once;
+   nvcc per source, all at once; each build line gives every kernel's
+   registers and spills from the compiler's report, saved beside the
+   library, also when the library was built before;
 2. holds each flat-scan kernel against its plain torch version on the
    card at 1M x 768 rows (f32, bf16, int8, int4; top-10 at batch 1, 16,
    64 and 100, top-100 at batch 1 and 64; a filtered case, a case with
@@ -14,15 +16,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    for every type) and times the kernel, the plain version and
    ``torch.matmul`` + ``torch.topk`` (a yardstick only: the port never
    calls it); each line names the scoring design that ran (the row loop
-   or the tile; ``scan_kernel_bigk`` then runs the radix select). Then
+   or the tile; ``scan_kernel_bigk`` then runs the radix select); at
+   batch 1 and in the headline cases also the device time of the call's
+   kernels alone (``device_ms``, torch.profiler). Then
    both designs of ``scan_kernel`` at batch
    2-16 of every type, held and timed (the "crossover" lines the
    wrapper's ``TILE_MIN_Q`` is set from);
 3. holds the IVF probe kernel against its plain version on 2048 buckets
    of 1024 x 768 rows (f32 and bf16; batch 1, 8, 64; nprobe 32, 64 and
-   every bucket; k 10 and 32; partly filled buckets) and times the
-   kernel, the plain version and ``index_select`` + ``bmm`` + ``topk`` (a
-   composition used as a yardstick only);
+   every bucket; k 1, 10 and 32; partly filled buckets; 24 copies of the
+   query in 12 probed buckets, equal keys across the k-th; probed
+   buckets with fewer live rows than k) and times the kernel (CUDA
+   events and ``device_ms``), the plain version and ``index_select`` +
+   ``bmm`` + ``topk`` (a composition used as a yardstick only); then the
+   k <= 32 merge alone, held bit for bit against its plain version and
+   timed, on the candidate shapes of the IVF and flat batch-1 paths (the
+   "merge" lines);
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
    six paths, each with the launch counts set to 0 just before it and
    read just after: the main path, 1M x 768 f32 cosine with metadata
@@ -97,6 +106,17 @@ LIBRARIES = ("flat_topk", "ivf_topk")
 # the IVF yardstick: no single torch call computes the probe, so it is a
 # composition, timed beside the kernel and never called by the port
 IVF_YARDSTICK = "index_select + bmm + topk (composition)"
+# the kernels a call launches once, for profile_device: a flat call's
+# scoring kernel (and for k <= 32 its merge), an IVF probe's two kernels
+EXPECT_IVF = ("ivf_scan_kernel", "merge_small_k")
+# device_ms: traces of one call taken at most, and how far (a share of
+# their median) the three that are believed may lie apart
+TRACES_MAX = 6
+TRACE_MARGIN = 0.15
+
+
+def expect_flat(k: int) -> tuple[str, ...]:
+    return ("scan_small_k", "merge_small_k") if k <= 32 else ("scan_small_k",)
 
 
 class SmokeFailure(RuntimeError):
@@ -138,33 +158,105 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 # --------------------------------------------------------------- phase 1
 
+def ptxas_report(log: str, saved: Path) -> str | None:
+    """The ptxas report of a library: a fresh build's ``log``, which is
+    saved beside the library in place of what was there; else the report
+    saved there when the library was built; None when there is neither
+    (a verbose build then has to make one)."""
+    if log:
+        saved.write_text(log)
+        return log
+    text = saved.read_text() if saved.is_file() else ""
+    return text or None
+
+
+def verbose_build_log(name: str) -> str:
+    """The ptxas report of ``csrc/<name>.cu``, from a build with the
+    library's flags and ``-Xptxas -v`` into a scratch file that is removed
+    again (the library itself was built before, without a report)."""
+    from tpu_vector_db_torch.ops import _build
+    out = _build.BUILD_DIR / f"ptxas_report_{name}.so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+           str(out), str(_build.CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {name}.cu:\n"
+          f"{proc.stderr[-4000:]}")
+    return proc.stdout + proc.stderr
+
+
+def kernel_label(mangled: str) -> str:
+    """``scan_small_k<1,1,0>`` for ``_Z12scan_small_kILi1ELi1ELb0EEv8ScanArgs``:
+    the name and integer template arguments of a mangled kernel name."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    rest = mangled[m.end() + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2])
+    return f"{name}<{','.join(args)}>"
+
+
+def parse_ptxas(report: str) -> dict[str, dict]:
+    """Registers and spill bytes (stores plus loads) of each kernel in a
+    ``-Xptxas -v`` report, by the kernel's label (``kernel_label``)."""
+    kernels: dict[str, dict] = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            kernels.setdefault(name, {"registers": None, "spill_bytes": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            kernels[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kernels[name]["registers"] = int(m.group(1))
+    return kernels
+
+
 def phase_build() -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together. Each build line gives
+    every kernel's registers and spills from the compiler's report, also
+    when the library was built before."""
     from tpu_vector_db_torch.ops import _build
 
     def one(name):
         t0 = time.perf_counter()
         path, log = _build.build(name, extra_flags=("-Xptxas", "-v"))
-        return name, path, log, time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        report = ptxas_report(log, path.with_suffix(".ptxas.txt"))
+        if report is None:
+            report = ptxas_report(verbose_build_log(name),
+                                  path.with_suffix(".ptxas.txt"))
+        return name, path, seconds, bool(log), report
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         built = list(pool.map(one, LIBRARIES))
     total = time.perf_counter() - t0
-    for name, path, log, seconds in built:
-        # the compiler's per-kernel report, beside the library it describes
-        path.with_suffix(".ptxas.txt").write_text(log)
-        regs = [int(w) for line in log.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:])
-                if nxt.startswith("registers")]
-        spills = [m.group(0) for m in re.finditer(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-            if int(m.group(1)) or int(m.group(2))]
+    for name, path, seconds, fresh, report in built:
+        kernels = parse_ptxas(report)
+        regs = [v["registers"] for v in kernels.values()
+                if v["registers"] is not None]
+        check(bool(regs), f"no register counts in the ptxas report of "
+              f"{name}.cu")
+        spills = {n: v["spill_bytes"] for n, v in kernels.items()
+                  if v["spill_bytes"]}
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "library": str(path.relative_to(REPO)), "seconds": seconds,
-              "all_sources_seconds": total,
-              "max_registers": max(regs, default=None),
-              "kernels_with_spills": len(spills), "spills": spills})
+              "built_now": fresh, "all_sources_seconds": total,
+              "max_registers": max(regs),
+              "kernels_with_spills": len(spills), "spill_bytes": spills,
+              "registers": {n: v["registers"] for n, v in kernels.items()}})
 
 
 # --------------------------------------------------------------- phase 2
@@ -287,6 +379,17 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
         side = count * 4 * ((flt is not None) + (metric == "euclidean")
                             + (dtype == "int4"))
         bound_ms, bound_by = bound(rows, row_bytes, q_n, d, k, dtype, side)
+        is_headline = (dtype, q_n, k) == HEADLINE[name] \
+            and metric == "cosine" and flt is None and count == n
+        # batch 1 and the headlines: the device part alone, by profiler
+        dev = device_ms(lambda: cuda_scan.flat_topk(q, db, count, k,
+                                                    **kwargs), 10,
+                        expect_flat(k), bound_ms) \
+            if q_n == 1 or is_headline else {}
+        if k <= 32 and "merge_small_k_ran" in dev:
+            check(dev["merge_small_k_ran"] and not
+                  dev["merge_topk_kernel_ran"], f"{name} {dtype} Q={q_n} "
+                  f"k={k} did not merge with merge_small_k alone")
         line = {"phase": "kernel", "kernel": name, "design": design,
                 "dtype": dtype, "metric": metric, "filtered": bool(flt),
                 "Q": q_n, "k": k,
@@ -294,15 +397,15 @@ def phase_kernels(d: int, seed: int) -> tuple[dict, dict]:
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": err, "key_tol": KEY_TOL,
-                "ids_ok": ids_ok, "launches": launches}
+                "ids_ok": ids_ok, "launches": launches, **dev}
         emit(line)
         check(launches == 1, f"{name} launched {launches} times in one call")
         check(keys_ok, f"{name} {dtype} Q={q_n} k={k}: key error {err}")
         check(ids_ok, f"{name} {dtype} Q={q_n} k={k}: ids differ")
         errs[name] = max(errs.get(name, 0.0), err)
-        if (dtype, q_n, k) == HEADLINE[name] and metric == "cosine" \
-                and flt is None and count == n:
+        if is_headline:
             headline[name] = dict(design=design, ms=kernel_ms,
+                                  device_ms=dev["device_ms"],
                                   plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=library_ms)
     crossover(dbs, queries, n, d, n_sm)
@@ -419,7 +522,12 @@ def hold_ivf(q, buckets, ids, fills, sel, k: int, what: dict,
         out["bound_ms"], out["bound_by"] = ivf_bound(
             fills, sel, buckets.shape[2] * buckets.element_size(),
             buckets.shape[2], k, dtype)
+        out.update(device_ms(lambda: ivf_scan.ivf_probe_topk(*args), 10,
+                             EXPECT_IVF, out["bound_ms"]))
     emit(out)
+    if "merge_small_k_ran" in out:
+        check(out["merge_small_k_ran"] and not out["merge_topk_kernel_ran"],
+              f"ivf_kernel did not merge with merge_small_k alone ({what})")
     check(launches == 1, f"ivf_kernel launched {launches} times in one call")
     check(keys_ok and ids_ok, f"ivf_kernel disagrees with its plain version "
           f"({what}, Q={q.shape[0]} nprobe={sel.shape[1]} k={k}, key error "
@@ -431,6 +539,7 @@ def phase_ivf_kernels(seed: int) -> float:
     """Every IVF kernel case on 2048 buckets of 1024 x 768 unit rows,
     partly filled. Returns the largest |key diff|."""
     import torch
+    from tpu_vector_db_torch.ops import ivf_scan
     nb, bc, d = 2048, 1024, 768
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 7)
@@ -449,15 +558,94 @@ def phase_ivf_kernels(seed: int) -> float:
              for dtype in ("float32", "bfloat16") for q_n in (1, 8, 64)
              for n_probe in (32, 64) for k in (10, 32)]
     cases += [("float32", 1, nb, 10), ("bfloat16", 1, nb, 32)]  # full probe
+    cases += [("float32", q_n, 32, 1) for q_n in (1, 8)]     # k = 1
     err = 0.0
     for dtype, q_n, n_probe, k in cases:
         sel = order[:q_n, :n_probe].to(torch.int32).contiguous()
         out = hold_ivf(queries[:q_n], by_dtype[dtype], ids, fills, sel, k,
                        {"phase": "ivf_kernel_case"}, timed=True)
         err = max(err, out["max_abs_err"])
+    sel = order[:1, :32].to(torch.int32).contiguous()
+    err = max(err, ivf_tie_case(queries[:1], buckets, ids, fills, sel, 10))
+    # the probed buckets hold 6 live rows in all, fewer than k
+    few = fills.clone()
+    few[sel[0, :4].long()] = torch.tensor([1, 2, 0, 3], dtype=torch.int32,
+                                          device=dev)
+    for k in (10, 32):
+        out = hold_ivf(queries[:1], buckets, ids, few, sel[:, :4], k,
+                       {"phase": "ivf_kernel_case", "case": "6 live rows"},
+                       timed=True)
+        err = max(err, out["max_abs_err"])
+        keys, _ = ivf_scan.ivf_probe_topk(queries[:1], buckets, ids, few,
+                                          sel[:, :4], k)
+        check(int(torch.isfinite(keys).sum()) == 6,
+              f"k={k} over 6 live rows gave {keys.tolist()}")
     del buckets, by_dtype, ids
     free_card()
     return err
+
+
+def ivf_tie_case(q, buckets, ids, fills, sel, k: int) -> float:
+    """Copies of the query in two live slots of each of 12 probed buckets
+    (f32): 24 rows of one key, in 12 lists of the scan and in several
+    warps' slices of the merge, straddle the k-th key. The top k must be
+    the k lowest ids among the copies, all with that key; then the
+    buckets are put back."""
+    import torch
+    from tpu_vector_db_torch.ops import ivf_scan
+    probed = sel[0, :12].long()
+    slots = torch.tensor([0, 5], device=q.device)
+    saved = buckets[probed[:, None], slots[None, :]].clone()
+    buckets[probed[:, None], slots[None, :]] = q[0]
+    try:
+        out = hold_ivf(q, buckets, ids, fills, sel, k,
+                       {"phase": "ivf_kernel_case",
+                        "case": "24 equal keys straddle the k-th"},
+                       timed=True)
+        keys, got = ivf_scan.ivf_probe_topk(q, buckets, ids, fills, sel, k)
+        copies = ids[probed[:, None], slots[None, :]].flatten()
+        want = torch.sort(copies).values[:k].to(torch.int32)
+        check(bool((got[0] == want).all()) and bool((keys[0] ==
+              keys[0, 0]).all()), f"tied copies: ids {got[0].tolist()}, "
+              f"want {want.tolist()}")
+    finally:
+        buckets[probed[:, None], slots[None, :]] = saved
+    return out["max_abs_err"]
+
+
+def phase_merge(seed: int) -> None:
+    """merge_small_k alone, held bit for bit against its plain version and
+    timed (device time by profiler, the plain version by CUDA events) on
+    random sorted candidate lists of the shapes the store paths give it:
+    IVF nprobe 32 at batch 1 (512 lists, about half of them empty as on
+    the ivf store's half-filled buckets) at k 10 and 32, flat f32 at batch
+    1 (4224 lists of 10) and IVF at batch 64 (32 lists of 10)."""
+    import torch
+    from tpu_vector_db_torch.ops import ivf_scan
+    rng = np.random.default_rng(seed + 11)
+    shapes = [("ivf b1", 1, 512, 10, 0.5), ("ivf b1 k32", 1, 512, 32, 0.5),
+              ("flat f32 b1", 1, 4224, 10, 0.0), ("ivf b64", 64, 32, 10, 0.5)]
+    for label, q_n, n_lists, k, empty in shapes:
+        keys = -np.sort(-rng.standard_normal((q_n, n_lists, k)).astype(
+            np.float32), axis=2)
+        keys[rng.random((q_n, n_lists)) < empty] = -np.inf
+        ids = np.stack([rng.permutation(n_lists * k) for _ in range(q_n)])
+        kt = torch.from_numpy(keys.reshape(q_n, -1)).cuda()
+        it = torch.from_numpy(ids.astype(np.int32)).cuda()
+        want_k, want_i = ivf_scan.merge_small_k_plain(kt, it, k, -1)
+        got_k, got_i = ivf_scan.merge_small_k(kt, it, k, -1)
+        check(torch.equal(got_k.view(torch.int32), want_k.view(torch.int32))
+              and torch.equal(got_i, want_i),
+              f"merge_small_k on {label} is not bit-equal to its plain "
+              "version")
+        dev = device_ms(lambda: ivf_scan.merge_small_k(kt, it, k, -1), 20,
+                        ("merge_small_k",))
+        emit({"phase": "merge", "case": label, "Q": q_n, "n_lists": n_lists,
+              "k": k, "empty_share": empty, "bit_equal": True,
+              "device_ms": dev["device_ms"],
+              "device_ms_traces": dev["device_ms_traces"],
+              "plain_ms": cuda_ms(lambda: ivf_scan.merge_small_k_plain(
+                  kt, it, k, -1), 5)})
 
 
 # --------------------------------------------------------------- phase 3
@@ -539,37 +727,144 @@ def timed_queries(store, queries: np.ndarray, k: int, reps: int,
             "qps": len(queries) / p50, "reps": reps}
 
 
-def device_share(store, queries: np.ndarray, k: int, reps: int) -> dict:
-    """torch.profiler over ``reps`` batch_query calls: device time by
-    kernel (events that ran on the device: kernels and copies) and the
-    device's busy share of the window. The profiler slows the host, so the
-    share is a lower bound of the unprofiled one."""
+def profile_device(fn, reps: int, expect: tuple[str, ...] = (),
+                   tries: int = 3
+                   ) -> tuple[float, dict[str, float], dict[str, int], bool]:
+    """torch.profiler over ``reps`` calls of fn after one warm call:
+    the window's milliseconds a call (host clock, ending in a
+    synchronize), device milliseconds a call by event name (events that
+    ran on the device: kernels and copies), the events seen of each name,
+    and whether the trace is whole: each kernel named (in part) in
+    ``expect``, which fn launches once a call, seen ``reps`` times. The
+    profiler drops events now and then; a trace that is not whole is
+    taken again, up to ``tries`` times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    store.batch_query(queries, k=k)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            store.batch_query(queries, k=k)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.key[:60]] = evt.self_device_time_total / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3 / reps
+        by_name: dict[str, float] = {}
+        counts: dict[str, int] = {}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                by_name[evt.key] = (by_name.get(evt.key, 0.0)
+                                    + evt.self_device_time_total / reps / 1e3)
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
+        whole = bool(by_name) and all(
+            n >= reps for n in launches_seen(counts, expect).values())
+        if whole:
+            break
+    return window_ms, by_name, counts, whole
+
+
+def launches_seen(counts: dict[str, int], expect: tuple[str, ...]
+                  ) -> dict[str, int]:
+    """Events seen of each kernel named (in part) in ``expect``."""
+    return {e: max((n for name, n in counts.items() if e in name),
+                   default=0) for e in expect}
+
+
+def top_kernels(by_name: dict[str, float], n: int = 10) -> dict:
+    """The n longest device events, names cut to 60 characters."""
+    return {name[:60]: ms for name, ms in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def device_ms(fn, reps: int, expect: tuple[str, ...],
+              floor_ms: float = 0.0) -> dict:
+    """The device time of one call of a kernel wrapper: the sum of the
+    kernels it ran, from torch.profiler (CUDA events around back-to-back
+    calls time the host once the device part is shorter than the
+    wrapper's host time). ``expect``: the kernels it launches once a
+    call; each counts at its mean launch, since the profiler drops a
+    launch now and then (a trace that saw fewer than half of them is
+    refused). It also reads a trace at about half its time now and then,
+    so one trace is not believed alone: traces are taken, at most
+    ``TRACES_MAX``, until three agree within ``TRACE_MARGIN`` of their
+    median, and that median is the result (with several such triples,
+    the slowest). A trace below ``floor_ms`` (the call's bound: no card
+    does the work in less) is refused. With no three agreeing it is "not
+    measured". Every trace's sum is given (``device_ms_traces``)."""
+    sums, kept, seen = [], [], {}
+    agree = None
+    for _ in range(TRACES_MAX):
+        _, by_name, counts, _ = profile_device(fn, reps, expect, tries=1)
+        seen = launches_seen(counts, expect)
+        if not by_name or any(2 * n < reps for n in seen.values()):
+            continue
+        per_call = {name: ms * reps / min(counts[name], reps)
+                    if any(e in name for e in expect) else ms
+                    for name, ms in by_name.items()}
+        total = sum(per_call.values())
+        sums.append(total)
+        if total >= floor_ms:
+            kept.append((total, per_call))
+            agree = agreeing(kept)
+            if agree:
+                break
+    if not agree:
+        return {"device_ms": "not measured (no three traces agree)",
+                "device_ms_traces": sums, "launches_seen": seen,
+                "reps": reps}
+    merges = [merge_kernels(t) for _, t in agree]
+    return {"device_ms": agree[1][0], "device_ms_traces": sums,
+            "device_ms_by_kernel": top_kernels(agree[1][1]),
+            "merge_small_k_ran": all(m[0] for m in merges),
+            "merge_topk_kernel_ran": any(m[1] for m in merges)}
+
+
+def agreeing(traces: list[tuple[float, dict]]) -> list | None:
+    """Three traces, by sum ascending, that lie within ``TRACE_MARGIN`` of
+    the middle one's sum; the slowest such three, or None."""
+    ordered = sorted(traces, key=lambda t: t[0])
+    for i in range(len(ordered) - 3, -1, -1):
+        three = ordered[i:i + 3]
+        if three[2][0] - three[0][0] <= TRACE_MARGIN * three[1][0]:
+            return three
+    return None
+
+
+def merge_kernels(by_name: dict[str, float]) -> tuple[bool, bool]:
+    """Whether merge_small_k ran, and whether merge_topk_kernel ran."""
+    return (any("merge_small_k" in n for n in by_name),
+            any("merge_topk_kernel" in n for n in by_name))
+
+
+def device_share(store, queries: np.ndarray, k: int, reps: int,
+                 expect: tuple[str, ...]) -> dict:
+    """torch.profiler over ``reps`` batch_query calls: device time by
+    kernel (events that ran on the device: kernels and copies) and the
+    device's busy share of the window. The profiler slows the host, so the
+    share is a lower bound of the unprofiled one. ``expect``: the kernels
+    a call launches once (``profile_device``); ``kernel_device_ms`` is
+    their time alone. For k <= 32 every merge must be merge_small_k."""
+    window_ms, by_name, _, whole = profile_device(
+        lambda: store.batch_query(queries, k=k), reps, expect)
     busy_ms = sum(by_name.values())
     out = {"Q": len(queries), "k": k, "reps": reps,
-           "window_ms_per_call": window_us / reps / 1e3}
-    if busy_ms == 0:
-        out["device_ms_per_call"] = "not measured (no device events)"
+           "window_ms_per_call": window_ms}
+    small, old = merge_kernels(by_name)
+    if k <= 32:
+        check(not old and (small or not whole), f"a k <= 32 call at "
+              f"Q={len(queries)} did not merge with merge_small_k alone "
+              f"({sorted(by_name)})")
+    if not whole:
+        out["device_ms_per_call"] = "not measured (the profiler missed " \
+            "events)"
         return out
     out.update(device_ms_per_call=busy_ms,
-               device_busy_share=busy_ms / (window_us / reps / 1e3),
-               device_ms_by_kernel=dict(sorted(
-                   by_name.items(), key=lambda kv: -kv[1])[:10]))
+               device_busy_share=busy_ms / window_ms,
+               kernel_device_ms=sum(ms for name, ms in by_name.items()
+                                    if any(e in name for e in expect)),
+               device_ms_by_kernel=top_kernels(by_name))
     return out
 
 
@@ -649,7 +944,8 @@ def path_main(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
                     "scan_kernel_bigk")
         emit({"phase": "main", "case": "768D f32 top-2000 b1", **r})
         for q_n, reps in ((1, 20), (64, 5)):
-            r = counted(lambda: device_share(store, qs[:q_n], 10, reps),
+            r = counted(lambda: device_share(store, qs[:q_n], 10, reps,
+                                            expect_flat(10)),
                         "scan_kernel")
             emit({"phase": "main", "case": f"768D f32 top-10 b{q_n} "
                   "profiled", **r})
@@ -683,7 +979,8 @@ def path_main(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
     for q_n, k, flt in ((1, 10, None), (64, 10, None), (1, 100, None),
                         (1, 2000, None), (1, 10, {"cat": 3})):
         hold_store(store, "main", qs[:q_n], k, errs, flt)
-    r = counted(lambda: device_share(store, qs[:1], 2000, 5),
+    r = counted(lambda: device_share(store, qs[:1], 2000, 5,
+                                    expect_flat(2000)),
                 "scan_kernel_bigk")
     emit({"phase": "main", "case": "768D f32 top-2000 b1 profiled", **r})
     del store, rows, meta
@@ -711,7 +1008,8 @@ def path_config2(g, tmp: Path, counts: dict, errs: dict) -> None:
         emit({"phase": "main", "case": f"config2 {N}x128 L2 top-100 b64",
               "add_seconds": add_s, "recall@100_8q": recall, **r})
     hold_store(store, "config2", qs, 100, errs)
-    r = counted(lambda: device_share(store, qs, 100, 5), "scan_kernel_bigk")
+    r = counted(lambda: device_share(store, qs, 100, 5, expect_flat(100)),
+                "scan_kernel_bigk")
     emit({"phase": "main", "case": f"config2 {N}x128 L2 top-100 b64 "
           "profiled", **r})
     del store, rows, keys
@@ -879,9 +1177,11 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
                         "ivf_kernel", IVF_ONLY)
             emit({"phase": "ivf", "case": f"768D IVF top-10 b{q_n}",
                   "nprobe": ann.nprobe, **r})
-        r = counted(lambda: device_share(store, qs[:1], 10, 20),
-                    "ivf_kernel", IVF_ONLY)
-        emit({"phase": "ivf", "case": "768D IVF top-10 b1 profiled", **r})
+        profiled = counted(lambda: device_share(store, qs[:1], 10, 20,
+                                                EXPECT_IVF),
+                           "ivf_kernel", IVF_ONLY)
+        emit({"phase": "ivf", "case": "768D IVF top-10 b1 profiled",
+              **profiled})
         # recall@10 of 64 queries, in batches of 8 (auto mode sends
         # batches of 32 and more to the exact scan)
         res = []
@@ -937,6 +1237,7 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
         out = hold_index(store, "ivf", qs[:q_n], 10, errs, timed=q_n == 1)
         if q_n == 1:
             headline = dict(design="probe", ms=out["kernel_ms"],
+                            device_ms=out["device_ms"],
                             plain_ms=out["plain_ms"],
                             bound_ms=out["bound_ms"],
                             bound_by=out["bound_by"], library_ms=None,
@@ -1024,6 +1325,7 @@ def main() -> int:
         phase_build()
         headline, errs = phase_kernels(768, args.seed)
         errs["ivf_kernel"] = phase_ivf_kernels(args.seed)
+        phase_merge(args.seed)
         shutil.rmtree(tmp, ignore_errors=True)
         g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         path_main(g, args.seed, tmp, counts, errs)

@@ -5,7 +5,7 @@
 // tpu_vector_db/ops/pallas_scan.py:
 //   _scan_kernel       (k <= 32) -> scan_small_k (small Q) or
 //                                   scan_small_k_tile (larger Q),
-//                                   then merge_topk_kernel
+//                                   then merge_small_k
 //   _scan_kernel_bigk  (k > 32)  -> the same two scoring kernels with a
 //                                   "store keys" epilogue, then the radix
 //                                   select of radix_select.cuh
@@ -77,9 +77,13 @@
 //    (radix_select.cuh). The scratch stays within the wrapper's budget:
 //    past it the rows are cut into chunks, each chunk's top-k is one
 //    candidate list, and merge_topk_kernel combines the lists.
-//  * The merge keeps the sorted best next_pow2(k) plus an equal candidate
-//    area (at least 4096 slots), in shared memory up to 16384 slots and in
-//    device-memory scratch past that (topk_common.cuh).
+//  * k <= 32: merge_small_k merges the splits' lists, one block of warps a
+//    query, each warp a register list over its slice of the candidates, a
+//    block-wide bound on the k-th key and a merge tree of the warp lists
+//    (topk_common.cuh). k > 32 chunks: merge_topk_kernel keeps the sorted
+//    best next_pow2(k) plus an equal candidate area (at least 4096 slots),
+//    in shared memory up to 16384 slots and in device-memory scratch past
+//    that.
 //  * Order is key descending, then id ascending, everywhere. The TPU
 //    kernel's first-occurrence rule gives exactly this because its ids rise
 //    in scan order; with the explicit rule the result does not depend on
@@ -186,8 +190,24 @@ __device__ __forceinline__ void store_keys(const ScanArgs& a, const float* K,
 //  * STORE true (k > 32): lane t keeps query t's key of each row in shared
 //    memory (-inf for masked rows); after each tile the block writes the
 //    tile's keys to the key scratch (store_keys).
+// One query (batch 1, every row type) is bounded to LOOP_MIN_BLOCKS blocks
+// an SM, at most 64 registers a thread: the wrapper's launch
+// (cuda_scan._TARGET_BLOCKS) is then one wave of 4 blocks on each SM, not
+// 1.33 waves of 3. More queries keep the registers they need.
+#define LOOP_MIN_BLOCKS 4
+
+template <int DT, int QT>
+__device__ __forceinline__ void loop_row_keys(const ScanArgs& a, int r, int n_chunks,
+                                              const float* qs, const float* qsum8, int lane,
+                                              float (&s)[QT]) {
+  const float scale = (DT == DT_I4) ? __ldg(a.scales + r) : 1.f;
+  const float sqn = a.euclid ? __ldg(a.sq + r) : 0.f;
+  row_keys<DT, QT>(reinterpret_cast<const uint4*>(a.db + (size_t)r * a.row_bytes),
+                   n_chunks, qs, qsum8, a.d_pad, lane, scale, sqn, a.euclid, s);
+}
+
 template <int DT, int QT, bool STORE>
-__global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
+__global__ void __launch_bounds__(THREADS, QT == 1 ? LOOP_MIN_BLOCKS : 1) scan_small_k(ScanArgs a) {
   extern __shared__ __align__(16) float lsmem[];
   float* qs = lsmem;
   float* qsum8 = lsmem + QT * a.d_pad;
@@ -196,55 +216,51 @@ __global__ void __launch_bounds__(THREADS) scan_small_k(ScanArgs a) {
   load_queries<DT, QT>(a, q0, qs, qsum8);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k = a.k;
-  float val[QT], thr[QT];
-  int id[QT];
-#pragma unroll
-  for (int t = 0; t < QT; t++) { val[t] = neg_inf(); thr[t] = neg_inf(); id[t] = 0; }
-
   const int r0 = a.row_base + blockIdx.y * a.rows_per_split;
   const int r1 = min(a.count, r0 + a.rows_per_split);
   const int n_chunks = a.row_bytes / 16;
-  // one pass over the split without STORE
-  for (int base = r0; base < r1; base += STORE ? TILE_ROWS : a.rows_per_split) {
-    const int end = STORE ? min(base + TILE_ROWS, r1) : r1;
-    for (int r = base + warp; r < end; r += WARPS) {
-      if (a.mask && __ldg(a.mask + r) <= 0.5f) {
-        if (STORE && lane < QT) Ks[lane * KEY_STRIDE + r - base] = neg_inf();
-        continue;
-      }
-      const float scale = (DT == DT_I4) ? __ldg(a.scales + r) : 1.f;
-      const float sqn = a.euclid ? __ldg(a.sq + r) : 0.f;
-      float s[QT];
-      row_keys<DT, QT>(reinterpret_cast<const uint4*>(a.db + (size_t)r * a.row_bytes),
-                       n_chunks, qs, qsum8, a.d_pad, lane, scale, sqn, a.euclid, s);
-      if constexpr (STORE) {
+  if constexpr (STORE) {
+    for (int base = r0; base < r1; base += TILE_ROWS) {
+      const int end = min(base + TILE_ROWS, r1);
+      for (int r = base + warp; r < end; r += WARPS) {
+        if (a.mask && __ldg(a.mask + r) <= 0.5f) {
+          if (lane < QT) Ks[lane * KEY_STRIDE + r - base] = neg_inf();
+          continue;
+        }
+        float s[QT];
+        loop_row_keys<DT, QT>(a, r, n_chunks, qs, qsum8, lane, s);
         float mine = s[0];  // lane t keeps query t's key
 #pragma unroll
         for (int t = 1; t < QT; t++) if (lane == t) mine = s[t];
         if (lane < QT) Ks[lane * KEY_STRIDE + r - base] = mine;
-      } else {
-#pragma unroll
-        for (int t = 0; t < QT; t++) {
-          if (s[t] > thr[t]) {  // warp-uniform: every lane holds s[t] and thr[t]
-            // rows arrive in rising id order, so equal keys already held stay ahead
-            const int pos = __popc(__ballot_sync(FULL, lane < k && val[t] >= s[t]));
-            const float up_v = __shfl_up_sync(FULL, val[t], 1);
-            const int up_i = __shfl_up_sync(FULL, id[t], 1);
-            if (lane == pos) { val[t] = s[t]; id[t] = r; }
-            else if (lane > pos && lane < k) { val[t] = up_v; id[t] = up_i; }
-            thr[t] = __shfl_sync(FULL, val[t], k - 1);
-          }
-        }
       }
-    }
-    if constexpr (STORE) {
       __syncthreads();
       store_keys<DT, QT, false>(a, Ks, qsum8, q0, base, end);
       __syncthreads();
     }
-  }
-  if constexpr (!STORE) {
+  } else {
+    const int k = a.k;
+    float val[QT], thr[QT];
+    int id[QT];
+#pragma unroll
+    for (int t = 0; t < QT; t++) { val[t] = neg_inf(); thr[t] = neg_inf(); id[t] = 0; }
+    for (int r = r0 + warp; r < r1; r += WARPS) {
+      if (a.mask && __ldg(a.mask + r) <= 0.5f) continue;
+      float s[QT];
+      loop_row_keys<DT, QT>(a, r, n_chunks, qs, qsum8, lane, s);
+#pragma unroll
+      for (int t = 0; t < QT; t++) {
+        if (s[t] > thr[t]) {  // warp-uniform: every lane holds s[t] and thr[t]
+          // rows arrive in rising id order, so equal keys already held stay ahead
+          const int pos = __popc(__ballot_sync(FULL, lane < k && val[t] >= s[t]));
+          const float up_v = __shfl_up_sync(FULL, val[t], 1);
+          const int up_i = __shfl_up_sync(FULL, id[t], 1);
+          if (lane == pos) { val[t] = s[t]; id[t] = r; }
+          else if (lane > pos && lane < k) { val[t] = up_v; id[t] = up_i; }
+          thr[t] = __shfl_sync(FULL, val[t], k - 1);
+        }
+      }
+    }
     const int n_lists = gridDim.y * WARPS;
     const int slot = blockIdx.y * WARPS + warp;
 #pragma unroll
@@ -792,8 +808,8 @@ extern "C" int vdb_flat_topk(const float* q, const uint16_t* q16, int Q, int d_p
   if (!big) {
     err = launch_scoring<false>(a, dtype, qt, splits, tile, st);
     if (err != cudaSuccess) return err;
-    return launch_merge(cand_keys, cand_ids, Q, n_lists * k, k, nullptr, nullptr, out_keys,
-                        out_ids, 0, st);
+    return launch_merge_small(cand_keys, cand_ids, Q, n_lists * k, k, out_keys, out_ids, 0,
+                              st);
   }
   const BigScratch b = big_scratch(Q, k, chunk_rows, n_lists);
   uint8_t* base = static_cast<uint8_t*>(scratch);

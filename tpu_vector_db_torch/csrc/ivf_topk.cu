@@ -10,8 +10,12 @@
 // What bounds it on this card. Each probed row is read once for 2*d flops:
 // far below the card's ratio of flops to bytes, so the scan is bound by
 // device-memory bytes. At batch 1, nprobe 32, Bc 1024, d 768 f32 a query
-// reads 32 x 1024 x 3072 B = 101 MB, about 30 us at 3.35 TB/s: small,
-// so the work must be spread over the whole card to come near it.
+// reads at most 32 x 1024 x 3072 B = 101 MB, about 30 us at 3.35 TB/s:
+// small, so the work must be spread over the whole card to come near it,
+// and what follows the scan (the merge of a query's lists, and the
+// launches) is a large share of the call. The merge moves few bytes (5120
+// candidates, 41 KB, at batch 1 and nprobe 32): its latency and its serial
+// steps bound it.
 //
 // What the design does about it:
 //  * The TPU grid (Q, nprobe) walks a query's probes in order on one core
@@ -19,7 +23,11 @@
 //    blocks: a grid of (query x probe, row split) blocks, each scoring its
 //    own slice of one bucket's live rows, so that even a batch-1 query
 //    fills the 132 SMs; a second launch merges each query's lists
-//    (merge_topk_kernel, topk_common.cuh).
+//    (merge_small_k, topk_common.cuh): one block of 16 warps a query, each
+//    warp a sorted list in registers over its slice of the candidates, a
+//    block-wide bound on the k-th key that drops a candidate on its key
+//    alone, and a tree of pairwise merges of the warp lists, in place of a
+//    one-block bitonic sort of at least 4096 slots.
 //  * A block loads its own sel[q, p] and fills[b] (the TPU kernel's scalar
 //    prefetch). Slots at or past the fill count are never read.
 //  * One warp scores one row at a time with 16-byte loads, as the flat scan
@@ -39,6 +47,8 @@
 // C interface, loaded with ctypes: vdb_ivf_topk returns cudaGetLastError()
 // after its launches (or cudaErrorInvalidValue for arguments it refuses).
 // It allocates nothing: the caller passes outputs and candidate scratch.
+// vdb_merge_small_k runs the merge alone (the tests and chip_smoke.py
+// hold it against its plain version).
 
 #include "topk_common.cuh"
 
@@ -155,6 +165,15 @@ extern "C" int vdb_ivf_topk(const float* q, int Q, int d_pad, const void* bucket
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_merge(cand_keys, cand_ids, Q, nprobe * splits * k, k, nullptr, nullptr,
-                      out_keys, out_ids, -1, st);
+  return launch_merge_small(cand_keys, cand_ids, Q, nprobe * splits * k, k, out_keys, out_ids,
+                            -1, st);
+}
+
+// The merge alone: cand_*: (Q, n_cand) candidates, out_*: (Q, k), k <= 32;
+// ids empty_id where the key is -inf.
+extern "C" int vdb_merge_small_k(const float* cand_keys, const int* cand_ids, int Q, int n_cand,
+                                 int k, float* out_keys, int* out_ids, int empty_id,
+                                 void* stream) {
+  return launch_merge_small(cand_keys, cand_ids, Q, n_cand, k, out_keys, out_ids, empty_id,
+                            static_cast<cudaStream_t>(stream));
 }

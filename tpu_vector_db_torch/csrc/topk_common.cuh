@@ -1,7 +1,9 @@
 // Device code shared by flat_topk.cu and ivf_topk.cu: the (key, id) order,
 // the warp's dot product of one stored row against queries held in shared
 // memory, the PTX wrappers of cp.async, ldmatrix and mma.sync, a
-// block-wide bitonic sort and the per-query merge of candidate lists.
+// block-wide bitonic sort and the two per-query merges of candidate lists:
+// merge_small_k (k <= 32, warp lists) and merge_topk_kernel (any k, the
+// k > 32 chunk merge).
 //
 // Order everywhere is key descending, then id ascending. Slots that hold no
 // row carry key -inf and id INT_MAX while they are being sorted.
@@ -227,7 +229,8 @@ inline int merge_len(int k) {
 // device-memory scratch that the caller passes.
 #define MERGE_SMEM_MAX_LEN 16384
 
-// One block per query: the best k of its n_cand candidates. Candidates
+// One block per query: the best k of its n_cand candidates (the k > 32
+// chunk merge of flat_topk.cu). Candidates
 // that cannot beat the running k-th best are dropped on load; the rest
 // collect in the working area of ml slots (dynamic shared memory, or
 // scratch + blockIdx.x * ml in device memory when scratch is given) and
@@ -305,5 +308,168 @@ static cudaError_t launch_merge(const float* cand_keys, const int* cand_ids, int
       cand_keys, cand_ids, n_cand, k, next_pow2(k), ml,
       global ? scratch_keys : nullptr, global ? scratch_ids : nullptr,
       out_keys, out_ids, empty_id);
+  return cudaGetLastError();
+}
+
+// ---- k <= 32: the warp-level merge ----
+//
+// Merges the candidate lists of both k <= 32 kernels: the split lists of
+// the flat scan (scan_small_k, scan_small_k_tile) and the (probe, split)
+// lists of the IVF probe (ivf_scan_kernel), which stand in for the top-k
+// that the TPU kernels _scan_kernel and _ivf_kernel carry from grid step to
+// grid step.
+//
+// What bounds it on this card. A query's candidates are few bytes (5120 of
+// them, 41 KB, for an IVF probe at nprobe 32; 42240, 338 KB, for a flat
+// batch-1 scan), just written by the scan and read once from L2: latency,
+// and the serial steps of the selection, bound it, not bytes. The earlier
+// merge (merge_topk_kernel) bitonic-sorts at least 4096 slots a flush, about
+// 78 stages each ending in a block-wide barrier.
+//
+// What the design does about it:
+//  * One block of MERGE_SMALL_WARPS (16) warps a query (16 timed faster
+//    than 32 at every shape the scans give it). Each warp walks a
+//    contiguous slice of the query's candidates, MERGE_LOADS coalesced 128-byte loads of keys a
+//    step, the next step's in flight while one is walked, and keeps a
+//    sorted top-k in registers (lane j holds the j-th best, warp_insert),
+//    as ivf_scan_kernel does. The ids of a step's surviving candidates are
+//    loaded together, so a step waits on L2 once, not once a group of 32.
+//  * A block-wide bound: each warp publishes its k-th key to shared memory
+//    (atomicMax of an order-preserving int image). No candidate strictly
+//    below the largest published key can be in the top k, so it is dropped
+//    on its key alone and its id is never read; a key equal to the bound
+//    stays, since ties go by id. -inf keys never enter (a slot that stays
+//    -inf comes out with empty_id).
+//  * The 16 warp lists meet in shared memory and go through 4 rounds of
+//    pairwise merges: each lane finds its entry's place in the other list
+//    by a binary search over shuffles (this timed faster than warp 0
+//    inserting each list in turn).
+//  * The result is the exact top k in (key desc, id asc) order, the same as
+//    merge_topk_kernel's for candidates whose ids are distinct in a query
+//    (as every scan writes them): no arithmetic happens here.
+
+#define MERGE_LOADS 8          // candidates in flight per lane
+#define MERGE_SMALL_WARPS 16   // warps of a block (one block a query)
+
+// Order-preserving int image of a float under signed compare; its own
+// inverse. -0.0 and +0.0 get two images, but the bound is compared as a
+// float, where they are equal.
+__device__ __forceinline__ int key_image(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float image_key(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// Entries of the sorted list (x, xi) (lane j holds the j-th of k) that come
+// before (a, ai), or with or_equal before or equal to it: a binary search
+// over shuffles, 6 halvings of [0, k].
+__device__ __forceinline__ int count_before(float x, int xi, float a, int ai, int k,
+                                            bool or_equal) {
+  int lo = 0, hi = k;
+#pragma unroll
+  for (int step = 0; step < 6; step++) {
+    const int mid = (lo + hi) >> 1;
+    const float xm = __shfl_sync(FULL, x, mid);
+    const int xim = __shfl_sync(FULL, xi, mid);
+    if (lo < hi) {
+      if (or_equal ? !before(a, ai, xm, xim) : before(xm, xim, a, ai)) lo = mid + 1;
+      else hi = mid;
+    }
+  }
+  return lo;
+}
+
+// One block an SM is enough (one block a query).
+__global__ void __launch_bounds__(MERGE_SMALL_WARPS * 32, 1) merge_small_k(
+    const float* __restrict__ cand_keys, const int* __restrict__ cand_ids, int n_cand, int k,
+    float* __restrict__ out_keys, int* __restrict__ out_ids, int empty_id) {
+  constexpr int W = MERGE_SMALL_WARPS;
+  __shared__ float lk[W][32];
+  __shared__ int li[W][32];
+  __shared__ int bound;  // key_image of the largest k-th key a warp holds
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) bound = key_image(neg_inf());
+  __syncthreads();
+  const float* keys = cand_keys + (size_t)blockIdx.x * n_cand;
+  const int* ids = cand_ids + (size_t)blockIdx.x * n_cand;
+  const int per = ((n_cand + W - 1) / W + 31) & ~31;  // a warp's slice, whole steps
+  const int j1 = min(n_cand, (warp + 1) * per);
+  float val = neg_inf(), thr_v = neg_inf();
+  int id = NO_ID, thr_i = NO_ID;
+  float kv[MERGE_LOADS], next[MERGE_LOADS];
+  const auto load = [&](float (&dst)[MERGE_LOADS], int at) {
+#pragma unroll
+    for (int u = 0; u < MERGE_LOADS; u++) {
+      const int j = at + u * 32 + lane;
+      dst[u] = j < j1 ? __ldg(keys + j) : neg_inf();
+    }
+  };
+  load(kv, warp * per);
+  for (int base = warp * per; base < j1; base += 32 * MERGE_LOADS) {
+    load(next, base + 32 * MERGE_LOADS);  // in flight while kv is walked
+    const float lo = image_key(*reinterpret_cast<volatile int*>(&bound));
+    const float held = thr_v;
+    // below the bound or the warp's k-th: out, its id never read; -inf (and
+    // NaN) never enter. The ids of the rest load together, one wait a step.
+    int iv[MERGE_LOADS];
+#pragma unroll
+    for (int u = 0; u < MERGE_LOADS; u++) {
+      if (!(kv[u] > neg_inf() && kv[u] >= lo && kv[u] >= thr_v)) kv[u] = neg_inf();
+      iv[u] = kv[u] > neg_inf() ? __ldg(ids + base + u * 32 + lane) : NO_ID;
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_LOADS; u++) {
+      unsigned m = __ballot_sync(FULL, kv[u] > neg_inf() && kv[u] >= thr_v);
+      while (m) {  // warp-uniform
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const float s = __shfl_sync(FULL, kv[u], src);
+        const int sid = __shfl_sync(FULL, iv[u], src);
+        if (before(s, sid, thr_v, thr_i)) {
+          warp_insert(val, id, s, sid, k, lane);
+          thr_v = __shfl_sync(FULL, val, k - 1);
+          thr_i = __shfl_sync(FULL, id, k - 1);
+        }
+      }
+    }
+    if (lane == 0 && thr_v > held) atomicMax(&bound, key_image(thr_v));
+#pragma unroll
+    for (int u = 0; u < MERGE_LOADS; u++) kv[u] = next[u];
+  }
+
+  // the W lists -> one, in lk[0] / li[0] (lanes >= k hold -inf / NO_ID)
+  lk[warp][lane] = val;
+  li[warp][lane] = id;
+  for (int s = 1; s < W; s <<= 1) {
+    __syncthreads();
+    if ((warp & (2 * s - 1)) == 0) {
+      const float a = lk[warp][lane], b = lk[warp + s][lane];
+      const int ai = li[warp][lane], bi = li[warp + s][lane];
+      // places in the merged list; equal entries: this warp's first
+      const int pa = lane + count_before(b, bi, a, ai, k, false);
+      const int pb = lane + count_before(a, ai, b, bi, k, true);
+      __syncwarp();
+      if (lane < k && pa < k) { lk[warp][pa] = a; li[warp][pa] = ai; }
+      if (lane < k && pb < k) { lk[warp][pb] = b; li[warp][pb] = bi; }
+    }
+  }
+  __syncwarp();
+  if (warp == 0 && lane < k) {
+    const float key = lk[0][lane];
+    out_keys[(size_t)blockIdx.x * k + lane] = key;
+    out_ids[(size_t)blockIdx.x * k + lane] = key == neg_inf() ? empty_id : li[0][lane];
+  }
+}
+
+// Launch merge_small_k for Q queries of n_cand candidates each, k <= 32.
+static cudaError_t launch_merge_small(const float* cand_keys, const int* cand_ids, int Q,
+                                      int n_cand, int k, float* out_keys, int* out_ids,
+                                      int empty_id, cudaStream_t st) {
+  if (k < 1 || k > 32 || Q < 1 || n_cand < 1) return cudaErrorInvalidValue;
+  merge_small_k<<<Q, MERGE_SMALL_WARPS * 32, 0, st>>>(cand_keys, cand_ids, n_cand, k, out_keys,
+                                                      out_ids, empty_id);
   return cudaGetLastError();
 }

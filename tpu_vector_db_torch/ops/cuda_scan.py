@@ -41,9 +41,9 @@ import torch
 
 from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.scan import scan_blocks
-from tpu_vector_db_torch.ops.topk import NEG_INF
+from tpu_vector_db_torch.ops.topk import MERGE_SMALL_MAX_K, NEG_INF
 
-MAX_K_SMALL = 32      # scan_kernel: per-warp register lists
+MAX_K_SMALL = MERGE_SMALL_MAX_K  # scan_kernel: per-warp register lists
 # the tile design from this batch up, by row type (chip_smoke.py's
 # crossover lines time both designs at batch 2-16). f32: up to batch 8 the
 # row loop reads the rows once and is bound by bytes, as the tile is by

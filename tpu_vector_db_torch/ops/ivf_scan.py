@@ -16,6 +16,10 @@ its centroid scores chose.
 * ``ivf_probe_topk_gather`` is the counterpart of
   ``ivf_probe_topk_gather``: probes gather their rows from the store's
   flat int8/int4/bf16 matrix, with no bucketized copy.
+* ``merge_small_k`` runs the k <= 32 merge of both scans' candidate lists
+  (``merge_small_k`` in ``csrc/topk_common.cuh``, the second launch of
+  ``ivf_kernel`` and of the flat ``scan_kernel``) alone, for the tests and
+  chip_smoke.py; ``merge_small_k_plain`` is its plain version.
 
 Keys are in the maximize convention of ops/distance.py. Order is key
 descending, then global row id ascending, so a full probe returns what the
@@ -32,9 +36,10 @@ import threading
 import torch
 
 from tpu_vector_db_torch.ops.launches import record
-from tpu_vector_db_torch.ops.topk import NEG_INF, merge_topk
+from tpu_vector_db_torch.ops.topk import (MERGE_SMALL_MAX_K, NEG_INF,
+                                          merge_topk, sort_by_key_then_id)
 
-MAX_IVF_KERNEL_K = 32
+MAX_IVF_KERNEL_K = MERGE_SMALL_MAX_K
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # blocks the kernel aims for (about 8 per SM on the 132 SMs), and the
 # fewest bucket rows one block scans
@@ -55,6 +60,8 @@ def _library() -> ctypes.CDLL:
             lib.vdb_ivf_topk.argtypes = [
                 p, i, i, p, i, i, i, p, i, p, p, p, i, i, i, p, p, p, p, p]
             lib.vdb_ivf_topk.restype = i
+            lib.vdb_merge_small_k.argtypes = [p, p, i, i, i, p, p, i, p]
+            lib.vdb_merge_small_k.restype = i
             _lib = lib
         return _lib
 
@@ -255,3 +262,54 @@ def _launch(queries, db_buckets, bucket_ids, bucket_fills, sel, k, metric,
         raise RuntimeError(f"ivf_topk kernel failed: CUDA error {err}")
     record("ivf_kernel")
     return keys, out_ids
+
+
+def merge_small_k_plain(keys, ids, k: int, empty_id: int = -1):
+    """The merge's plain version: each query's (key, id) candidates sorted
+    by key descending, then id ascending, and cut to k. keys (Q, n) f32,
+    ids (Q, n) i32. Returns (keys (Q, k), ids (Q, k)): -inf past the live
+    candidates, and ids ``empty_id`` wherever the key is -inf."""
+    vals, idx = sort_by_key_then_id(keys.float(), ids.to(torch.int32))
+    vals, idx = _pad_k(vals[:, :k], idx[:, :k], k)
+    return vals, torch.where(vals > NEG_INF, idx,
+                             torch.full_like(idx, empty_id))
+
+
+def merge_small_k(keys, ids, k: int, empty_id: int = -1):
+    """The k <= 32 merge alone: the CUDA kernel on a CUDA tensor,
+    ``merge_small_k_plain`` on a CPU tensor. It is a stage of
+    ``ivf_kernel`` and ``scan_kernel``, whose wrappers count their
+    launches, so it records none itself.
+    Candidate ids must be distinct within a query, as the scans write
+    them."""
+    if not 1 <= k <= MERGE_SMALL_MAX_K:
+        raise ValueError(f"merge_small_k takes 1 <= k <= "
+                         f"{MERGE_SMALL_MAX_K}, got {k}")
+    if keys.ndim != 2 or tuple(ids.shape) != tuple(keys.shape) \
+            or keys.shape[0] < 1 or keys.shape[1] < 1:
+        raise ValueError("keys and ids must be the same (Q, n) shape, "
+                         "Q, n >= 1")
+    if keys.device.type == "cpu":
+        return merge_small_k_plain(keys, ids, k, empty_id)
+    if keys.device.type != "cuda":
+        raise ValueError(f"merge_small_k runs on cuda or cpu, got "
+                         f"{keys.device}")
+    dev = keys.device
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError(
+            "csrc/ivf_topk.cu is built for sm_90a (Hopper); device "
+            f"{torch.cuda.get_device_name(dev)} is not")
+    lib = _library()
+    q_n, n = keys.shape
+    keys = keys.to(torch.float32).contiguous()
+    ids = ids.to(device=dev, dtype=torch.int32).contiguous()
+    out_keys = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_ids = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vdb_merge_small_k(
+            keys.data_ptr(), ids.data_ptr(), q_n, n, k, out_keys.data_ptr(),
+            out_ids.data_ptr(), empty_id, stream)
+    if err != 0:
+        raise RuntimeError(f"merge_small_k kernel failed: CUDA error {err}")
+    return out_keys, out_ids

@@ -11,6 +11,9 @@ from __future__ import annotations
 import torch
 
 NEG_INF = float("-inf")
+# largest k of the warp-level merge (merge_small_k, csrc/topk_common.cuh)
+# that both k <= 32 scans end in: one list entry a lane
+MERGE_SMALL_MAX_K = 32
 
 
 def top_k(scores: torch.Tensor, k: int, largest: bool = True):
