@@ -33,7 +33,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed, on the candidate shapes of the IVF and flat batch-1 paths (the
    "merge" lines);
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
-   six paths, each with the launch counts set to 0 just before it and
+   six paths, and the server on a seventh, each with the launch counts set to 0 just before it and
    read just after: the main path, 1M x 768 f32 cosine with metadata
    (batch 1 and 64, top-100, top-2000, filter, delete, self-query,
    recall@10 against an exact ground truth); BASELINE config #2, 1M x 128
@@ -47,7 +47,19 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed both through the exact scan and through the IVF kernel with
    ``index_type="ivf"``); ``ivf_small``, 200K x
    384 bf16 with ``enable_ann=True``, flushed and reopened, the index
-   served from its sidecar without a rebuild. After each path the kernels
+   served from its sidecar without a rebuild; and ``serve``, the REST
+   server (``tpu_vector_db_torch.api.app.create_app`` on the card, on
+   127.0.0.1 at a free port, spoken to over TCP with aiohttp): a 1M x
+   768 f32 cosine store made by ``/admin/create_store`` and filled by 8
+   ``/v1/batch/upload`` calls of 125K rows (followed on their SSE
+   streams), 50 sequential ``/vectors/query`` requests, 256 concurrent
+   ones (64 in flight) that the query coalescer folds into batched scans
+   (the launches equal to its flushes, every answer equal to the store's
+   own ``batch_query``), ``/vectors/batch_query`` at batch 64, top-10 and
+   top-100, a filter, an add with self-queries, a delete, the request
+   count in ``/monitoring/prometheus``, the card in ``/health`` and
+   ``/system/info``, and the device's busy share of a burst of 64
+   requests. After each path the kernels
    are held against their plain version once more on that store's own
    rows, buckets, masks, batch sizes and k, and the big-k calls of the
    main path (top-2000 b1) and config #2 (top-100 b64) are profiled
@@ -1298,6 +1310,345 @@ def path_ivf_small(g, tmp: Path, counts: dict, errs: dict) -> None:
     free_card()
 
 
+# ------------------------------------------------------- the serve path
+
+SERVE_PARTS = 8                 # /v1/batch/upload calls of N / 8 rows each
+SERVE_SEQUENTIAL = 50           # one client, one request at a time
+SERVE_BURST, SERVE_IN_FLIGHT = 256, 64
+SIM_TOL = 1e-5                  # f32 keys of two scan designs; 6 digits
+
+
+class ServerThread:
+    """The port's app on 127.0.0.1 at a free port, on its own event loop
+    in a thread, so the client side (and torch.profiler) can run in this
+    one. ``close`` runs the app's cleanup: the coalescer's aclose, then
+    the manager's shutdown."""
+
+    def __init__(self, app) -> None:
+        import asyncio
+        import threading
+        from aiohttp import web
+        self.loop = asyncio.new_event_loop()
+        self.runner = web.AppRunner(app, access_log=None)
+        self.loop.run_until_complete(self.runner.setup())
+        site = web.TCPSite(self.runner, "127.0.0.1", 0)
+        self.loop.run_until_complete(site.start())
+        self.url = "http://127.0.0.1:%d" % self.runner.addresses[0][1]
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="serve-loop", daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        import asyncio
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(),
+                                         self.loop).result(300)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        check(not self.thread.is_alive(), "the server loop did not stop")
+        self.loop.close()
+
+
+class Client:
+    """An aiohttp session on its own event loop in this thread; each call
+    runs to its end here. ``get``/``post`` return (status, JSON body)."""
+
+    def __init__(self, url: str, key: str) -> None:
+        import asyncio
+        import aiohttp
+        self.loop = asyncio.new_event_loop()
+        self.url = url
+        self.auth = {"Authorization": f"Bearer {key}"}
+        self.session = self.run(self._open(aiohttp))
+
+    async def _open(self, aiohttp):
+        return aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=2 * SERVE_IN_FLIGHT),
+            timeout=aiohttp.ClientTimeout(total=900))
+
+    def run(self, coro):
+        return self.loop.run_until_complete(coro)
+
+    async def request(self, method: str, path: str, headers=None, **kw):
+        async with self.session.request(
+                method, self.url + path,
+                headers={**self.auth, **(headers or {})}, **kw) as r:
+            body = await (r.json() if r.content_type == "application/json"
+                          else r.text())
+            return r.status, body
+
+    def get(self, path: str, **kw):
+        return self.run(self.request("GET", path, **kw))
+
+    def post(self, path: str, **kw):
+        return self.run(self.request("POST", path, **kw))
+
+    def close(self) -> None:
+        self.run(self.session.close())
+        self.loop.close()
+
+
+def ok(reply, what: str, status: int = 200):
+    check(reply[0] == status, f"{what}: HTTP {reply[0]} {reply[1]}")
+    return reply[1]
+
+
+def upload_part(client: Client, who: dict, rows: np.ndarray, start: int
+                ) -> dict:
+    """One /v1/batch/upload of rows (npz) and their {"cat": i % 16}
+    metadata (jsonl), followed on its SSE stream to ``done``."""
+    import io
+    import aiohttp
+    buf = io.BytesIO()
+    np.savez(buf, vectors=rows)
+    meta = "".join('{"cat": %d}\n' % (i % 16)
+                   for i in range(start, start + len(rows)))
+    form = aiohttp.FormData()
+    form.add_field("user_id", who["user_id"])
+    form.add_field("model_id", who["model_id"])
+    form.add_field("vectors", buf.getvalue(), filename="vectors.npz",
+                   content_type="application/octet-stream")
+    form.add_field("metadata", meta.encode(), filename="metadata.jsonl",
+                   content_type="application/jsonl")
+    del buf
+    body = ok(client.post("/v1/batch/upload", data=form), "upload", 202)
+    events = client.get(body["stream"])[1]
+    check("event: done" in events, "the upload's SSE stream did not end "
+          "in done")
+    op = ok(client.get(f"/v1/batch/operations/{body['op_id']}"),
+            "operation status")
+    check(op["status"] == "completed" and op["result"]["added"] == len(rows),
+          f"upload at row {start}: {op['status']} {op['error']}")
+    return op
+
+
+def latencies(times: list[float]) -> dict:
+    ms = np.asarray(times) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "requests": len(ms)}
+
+
+async def burst(client: Client, who: dict, qs: np.ndarray, k: int,
+                in_flight: int) -> tuple[list, list[float]]:
+    """Every query of ``qs`` as its own /vectors/query, ``in_flight`` at a
+    time; returns the result lists and each request's seconds."""
+    import asyncio
+    gate = asyncio.Semaphore(in_flight)
+    bodies = [json.dumps({**who, "query": q.tolist(), "k": k})
+              for q in qs]
+
+    async def one(body):
+        async with gate:
+            t0 = time.perf_counter()
+            status, out = await client.request(
+                "POST", "/vectors/query", data=body,
+                headers={"Content-Type": "application/json"})
+            dt = time.perf_counter() - t0
+        check(status == 200, f"burst query: HTTP {status} {out}")
+        return out["results"], dt
+
+    got = await asyncio.gather(*[one(b) for b in bodies])
+    return [r for r, _ in got], [dt for _, dt in got]
+
+
+def same_results(results: list[dict], ids, scores) -> bool:
+    """REST results against the store's (ids, scores): similarities
+    within SIM_TOL, ids equal where no other score is within 2 SIM_TOL."""
+    got = np.array([r["similarity"] for r in results])
+    scores = np.asarray(scores, np.float64)
+    if len(got) != len(scores) or np.abs(got - scores).max() > SIM_TOL:
+        return False
+    for pos, r in enumerate(results):
+        if np.sum(np.abs(scores - scores[pos]) <= 2 * SIM_TOL) == 1 \
+                and r["index"] != ids[pos]:
+            return False
+    return True
+
+
+def coalescer_stats(client: Client) -> dict:
+    return ok(client.get("/performance/stats"), "performance stats")[
+        "coalescer"]
+
+
+def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
+    """The port's REST server at 1M x 768 f32 cosine: the store made with
+    /admin/create_store, filled through /v1/batch/upload, queried over
+    HTTP one at a time and in a concurrent burst that the coalescer folds
+    into batched scans, and by /vectors/batch_query at top-10 and
+    top-100; then the filter, add, self-query and delete checks."""
+    import os
+    import torch
+    # one INFO line a request would be most of this script's output
+    os.environ.setdefault("LOG_LEVEL", "WARNING")
+    from tpu_vector_db_torch.api.app import create_app
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    from tpu_vector_db_torch.security.auth import auth_config
+    from tpu_vector_db_torch.service.error_handler import ErrorHandler
+    from tpu_vector_db_torch.service.manager import VectorStoreManager
+    d = 768
+    who = {"user_id": "smoke", "model_id": "serve"}
+    rows = unit_rows(g, N, d)
+    qs = rows[:SERVE_BURST].cpu().numpy() + 0.05 * np.random.default_rng(
+        seed + 7).standard_normal((SERVE_BURST, d)).astype(np.float32)
+    manager = VectorStoreManager(base_path=tmp / "serve", device="cuda",
+                                 errors=ErrorHandler(tmp / "serve_logs"))
+    server = ServerThread(create_app(manager=manager))
+    # the admin key passes every route, at the tier that allows 64
+    # queries in flight
+    client = Client(server.url, auth_config.admin_key)
+    requests = 0
+    try:
+        with counting("serve", ("scan_kernel", "scan_kernel_bigk"), counts):
+            health = ok(client.get("/health"), "health")
+            dev = health["checks"]["device"]
+            check(dev.get("device_name") == torch.cuda.get_device_name(0),
+                  f"/health does not name the card: {dev}")
+            ok(client.post("/admin/create_store", json={
+                **who, "dimension": d, "metric": "cosine",
+                "storage_dtype": "float32", "index_type": "flat",
+                "expected_rows": N}), "create_store", 201)
+            part = N // SERVE_PARTS
+            t0 = time.perf_counter()
+            part_s = []
+            for start in range(0, N, part):
+                t1 = time.perf_counter()
+                upload_part(client, who,
+                            rows[start:start + part].cpu().numpy(), start)
+                part_s.append(time.perf_counter() - t1)
+            upload_s = time.perf_counter() - t0
+            count = ok(client.get("/vectors/count", params=who),
+                       "count")["count"]
+            check(count == N, f"/vectors/count is {count}")
+            emit({"phase": "serve", "case": f"upload {N}x{d} f32",
+                  "parts": SERVE_PARTS, "seconds": upload_s,
+                  "rows_per_s": N / upload_s, "part_seconds": part_s})
+            requests += 3 + 3 * SERVE_PARTS
+
+            times = []
+            for i in range(SERVE_SEQUENTIAL):
+                t1 = time.perf_counter()
+                ok(client.post("/vectors/query", json={
+                    **who, "query": qs[i].tolist(), "k": 10}), "query")
+                times.append(time.perf_counter() - t1)
+            emit({"phase": "serve", "case": "sequential top-10 b1",
+                  **latencies(times)})
+
+            before_stats = coalescer_stats(client)
+            before = LAUNCHES["scan_kernel"]
+            t0 = time.perf_counter()
+            results, times = client.run(burst(client, who, qs, 10,
+                                              SERVE_IN_FLIGHT))
+            wall = time.perf_counter() - t0
+            launches = LAUNCHES["scan_kernel"] - before
+            after_stats = coalescer_stats(client)
+            flushes = after_stats["batches"] - before_stats["batches"]
+            hist = {b: n - before_stats["batch_size_hist"].get(b, 0)
+                    for b, n in after_stats["batch_size_hist"].items()}
+            check(launches == flushes and launches < SERVE_BURST,
+                  f"burst: {launches} scan_kernel launches for {flushes} "
+                  f"flushes of {SERVE_BURST} requests")
+            direct = manager.get_store(**who, create=False).batch_query(
+                qs, k=10)
+            same = [same_results(r, ids, sc)
+                    for r, (ids, sc, _) in zip(results, direct)]
+            check(all(same), f"{same.count(False)} coalesced answers differ "
+                  "from the store's own batch_query")
+            emit({"phase": "serve", "case": f"concurrent top-10 b1 x "
+                  f"{SERVE_BURST}, {SERVE_IN_FLIGHT} in flight",
+                  **latencies(times), "wall_s": wall,
+                  "qps": SERVE_BURST / wall, "flushes": flushes,
+                  "scan_kernel_launches": launches,
+                  "flush_size_hist": {b: n for b, n in hist.items() if n},
+                  "same_as_direct": True})
+            requests += SERVE_SEQUENTIAL + SERVE_BURST + 2
+
+            for k, kernel in ((10, "scan_kernel"), (100, "scan_kernel_bigk")):
+                body = {**who, "queries": qs[:64].tolist(), "k": k}
+                times = []
+                before = LAUNCHES[kernel]
+                for _ in range(6):
+                    t1 = time.perf_counter()
+                    out = ok(client.post("/vectors/batch_query", json=body),
+                             "batch_query")
+                    times.append(time.perf_counter() - t1)
+                check(LAUNCHES[kernel] > before and len(out["results"]) == 64
+                      and all(len(r) == k for r in out["results"]),
+                      f"batch_query top-{k} did not run {kernel}")
+                emit({"phase": "serve", "case": f"batch_query top-{k} b64",
+                      "kernel": kernel, "p50_ms": float(np.median(
+                          times[1:])) * 1e3, "reps": 5})
+            requests += 12
+
+            out = ok(client.post("/vectors/query", json={
+                **who, "query": qs[0].tolist(), "k": 10,
+                "filter_metadata": {"cat": 3}}), "filtered query")
+            check(len(out["results"]) == 10 and all(
+                r["metadata"]["cat"] == 3 for r in out["results"]),
+                "the filtered query returned a non-matching row")
+            new = unit_rows(g, 1024, d).cpu().numpy()
+            out = ok(client.post("/vectors/add", json={
+                **who, "vectors": new.tolist(),
+                "metadata": [{"cat": 99} for _ in range(1024)]}), "add")
+            check(out["total"] == N + 1024, f"add: total {out['total']}")
+            for j in (0, 511, 1023):
+                top = ok(client.post("/vectors/query", json={
+                    **who, "query": new[j].tolist(), "k": 1}),
+                    "self-query")["results"][0]
+                check(top["index"] == N + j and top["similarity"] > 0.999,
+                      f"self-query of added row {N + j} returned {top}")
+            first = ok(client.post("/vectors/query", json={
+                **who, "query": qs[0].tolist(), "k": 10}), "query")
+            hit = first["results"][0]["index"]
+            ok(client.post("/vectors/delete", json={**who, "indices": [hit]}),
+               "delete")
+            again = ok(client.post("/vectors/query", json={
+                **who, "query": qs[0].tolist(), "k": 10}), "query")
+            ids = [r["index"] for r in again["results"]]
+            check(hit not in ids and ids[:9] == [
+                r["index"] for r in first["results"][1:]],
+                "delete: the deleted row came back or the order changed")
+            requests += 8
+            prom = client.get("/monitoring/prometheus")[1]
+            seen = [float(line.split()[-1]) for line in prom.splitlines()
+                    if line.startswith("http_requests_total")]
+            check(seen and seen[0] >= requests, f"prometheus counts "
+                  f"{seen} requests, the run made at least {requests}")
+            info = ok(client.get("/system/info"), "system info")
+            check(info["accelerator"]["devices"][0]
+                  == torch.cuda.get_device_name(0),
+                  f"/system/info does not name the card: "
+                  f"{info['accelerator']}")
+            emit({"phase": "serve", "case": "checks", "filter": True,
+                  "add_self_query": True, "delete": True,
+                  "prometheus_requests": seen[0], "system_info_card":
+                  info["accelerator"]["devices"][0]})
+
+            # the device's busy share of one burst of 64 requests
+            window_ms, by_name, seen_n, whole = profile_device(
+                lambda: client.run(burst(client, who, qs[:64], 10,
+                                         SERVE_IN_FLIGHT)), 3,
+                ("scan_small_k",))
+            busy = sum(by_name.values())
+            emit({"phase": "serve", "case": "burst of 64 profiled",
+                  "window_ms_per_burst": window_ms,
+                  "device_ms_per_burst": busy if whole else
+                  "not measured (the profiler missed events)",
+                  "device_busy_share": busy / window_ms if whole else
+                  "not measured", "device_ms_by_kernel":
+                  top_kernels(by_name), "launches_seen": launches_seen(
+                      seen_n, ("scan_small_k",))})
+        store = manager.get_store(**who, create=False)
+        for q_n, k, flt in ((1, 10, None), (64, 10, None), (1, 100, None),
+                            (64, 100, None), (1, 10, {"cat": 3})):
+            hold_store(store, "serve", qs[:q_n], k, errs, flt)
+        del store
+    finally:
+        client.close()
+        server.close()
+    del rows, manager, server
+    free_card()
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1334,6 +1685,7 @@ def main() -> int:
         path_config1(g, args.seed, tmp, counts, errs)
         headline["ivf_kernel"] = path_ivf(g, tmp, counts, errs)
         path_ivf_small(g, tmp, counts, errs)
+        path_serve(g, args.seed, tmp, counts, errs)
         kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name],
                     "launches": counts[HEADLINE_PATH[name]][name],

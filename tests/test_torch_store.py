@@ -215,6 +215,49 @@ def test_persistence_across_packages(tmp_path, direction):
     assert_results_match(reader.batch_query(q, k=10), before, 1e-3)
 
 
+def test_sync_saves_write_the_jax_files(tmp_path):
+    """A sync store writes, after every mutation, the files the JAX store
+    writes: metadata.jsonl byte for byte, the same rows and manifest,
+    across adds, a compact, a clear and a reopen (the torch store keeps
+    the lines of rows it encoded before and encodes only new ones)."""
+    js, ts = _pair(tmp_path, persist_mode="sync")
+    x = _rows(9, 300)
+    meta = [{"i": i, "name": f"ünï {i}", "tags": [i % 3]} for i in range(300)]
+
+    def same_files():
+        for name in ("metadata.jsonl", "tombstones.npz"):
+            a, b = tmp_path / "jax" / name, tmp_path / "torch" / name
+            assert a.exists() == b.exists()
+            if name.endswith(".jsonl"):
+                assert a.read_bytes() == b.read_bytes()
+        with np.load(tmp_path / "jax" / "vectors.npz") as a, \
+                np.load(tmp_path / "torch" / "vectors.npz") as b:
+            np.testing.assert_array_equal(a["vectors"], b["vectors"])
+        import json
+        assert json.loads((tmp_path / "torch" / "manifest.json").read_text()
+                          ) == json.loads((tmp_path / "jax" /
+                                           "manifest.json").read_text())
+
+    for start in (0, 100, 200):
+        for s in (js, ts):
+            s.add_vectors(x[start:start + 100], meta[start:start + 100])
+        same_files()
+    for s in (js, ts):
+        s.delete_vectors([3, 150])
+        s.compact()
+        s.add_vectors(x[:7], meta[:7])
+    same_files()
+    js, ts = (TPUVectorStore(tmp_path / "jax"),
+              TorchVectorStore(tmp_path / "torch", device="cpu"))
+    for s in (js, ts):
+        s.add_vectors(x[7:9], meta[7:9])
+    same_files()
+    for s in (js, ts):
+        s.clear()
+        s.add_vectors(x[:2], meta[:2])
+    same_files()
+
+
 def test_manifest_config_wins_on_reopen(tmp_path):
     s = create_vector_store(tmp_path / "s", dimension=32,
                             metric="dot_product", device="cpu")

@@ -13,9 +13,16 @@ sets up no runtime at import. Modules mirror the JAX package's layout:
     store/   config, persistence (the JAX package's on-disk format) and
              TorchVectorStore, with the JAX store's ANN routing
     utils/   atomic writes, file lock, readers-writer lock, validation
+    service/ the multi-tenant store manager (its worker pool), the query
+             coalescer, errors, circuit breakers, retries, degradation
+    api/     the aiohttp REST server (``create_app``; ``python -m
+             tpu_vector_db_torch`` serves it), routes, rate limiting
+    core/, monitoring/, security/
+             logging and torch settings, metrics and health checks, keys
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (the server: ``VDB_FORCE_CPU=1``). Importing this package
+does not import ``api/``, so the library needs no aiohttp.
 """
 
 __version__ = "0.1.0"

@@ -54,13 +54,20 @@ def load_manifest_config(path: str | Path) -> VectorStoreConfig | None:
         return None
 
 
-def save_store(path: str | Path, vectors: np.ndarray, metadata: list[dict],
+def encode_metadata(metadata: list[dict]) -> bytes:
+    """metadata.jsonl's bytes for these rows: one JSON object a line."""
+    return "".join(json.dumps(m, ensure_ascii=False) + "\n"
+                   for m in metadata).encode()
+
+
+def save_store(path: str | Path, vectors: np.ndarray, metadata_jsonl: bytes,
                config: VectorStoreConfig) -> None:
-    """Atomically persist the full store state. ``vectors`` is (count, d) f32."""
+    """Atomically persist the full store state. ``vectors`` is (count, d)
+    f32; ``metadata_jsonl`` is ``encode_metadata`` of its rows."""
     p = ensure_directory(path)
-    atomic_save_npz(p / VECTORS_FILE, vectors=vectors.astype(np.float32))
-    lines = "\n".join(json.dumps(m, ensure_ascii=False) for m in metadata)
-    atomic_write_bytes(p / METADATA_FILE, (lines + "\n" if lines else "").encode())
+    atomic_save_npz(p / VECTORS_FILE,
+                    vectors=np.asarray(vectors, dtype=np.float32))
+    atomic_write_bytes(p / METADATA_FILE, metadata_jsonl)
     manifest = {
         "format_version": FORMAT_VERSION,
         "count": int(vectors.shape[0]),

@@ -217,6 +217,10 @@ class TorchVectorStore:
         self._host_cap = 0
         self._host_buf: np.ndarray | None = None  # (host_cap, d) float32
         self._metadata: list[dict] = []
+        # metadata.jsonl of the rows of _metadata encoded so far: rows are
+        # only appended to one list (compact, clear and load replace it),
+        # so a save encodes only the rows added since the last one
+        self._jsonl: tuple[list, int, bytearray] = ([], 0, bytearray())
         self._meta_index = MetadataColumnIndex()
         # tombstones: stable ids; deleted rows drop out of the scan
         # through the same mask as filters; compact() reclaims space
@@ -970,12 +974,20 @@ class TorchVectorStore:
     def close(self) -> None:
         self.flush()
 
+    def _metadata_jsonl(self) -> bytes:
+        rows, n, buf = self._jsonl
+        if rows is not self._metadata:
+            rows, n, buf = self._metadata, 0, bytearray()
+        buf += persistence.encode_metadata(rows[n:])
+        self._jsonl = (rows, len(rows), buf)
+        return bytes(buf)
+
     def _save(self) -> None:
         live = (self._host_buf[: self._count] if self._host_buf is not None
                 else np.zeros((0, self.config.dimension), np.float32))
         with self._file_lock:
             persistence.save_store(
-                self.store_path, live, self._metadata, self.config)
+                self.store_path, live, self._metadata_jsonl(), self.config)
             # tombstones persist beside the main files so ids stay stable
             tpath = self.store_path / "tombstones.npz"
             if self._deleted:

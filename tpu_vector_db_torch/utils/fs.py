@@ -9,7 +9,6 @@ POSIX) and the lock is stdlib fcntl, actually used by the store.
 
 from __future__ import annotations
 
-import io
 import os
 import fcntl
 from pathlib import Path
@@ -35,9 +34,15 @@ def atomic_write_bytes(path: str | os.PathLike, data: bytes) -> None:
 
 
 def atomic_save_npz(path: str | os.PathLike, **arrays: np.ndarray) -> None:
-    buf = io.BytesIO()
-    np.savez(buf, **arrays)
-    atomic_write_bytes(path, buf.getvalue())
+    """np.savez written straight into the tmp file (no in-memory copy of
+    the archive), then fsync and rename, as ``atomic_write_bytes``."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 class FileLock:
