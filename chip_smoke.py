@@ -33,10 +33,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed, on the candidate shapes of the IVF and flat batch-1 paths (the
    "merge" lines);
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
-   six paths, and the server on a seventh, each with the launch counts set to 0 just before it and
-   read just after: the main path, 1M x 768 f32 cosine with metadata
-   (batch 1 and 64, top-100, top-2000, filter, delete, self-query,
-   recall@10 against an exact ground truth); BASELINE config #2, 1M x 128
+   eight paths, and the server on a ninth, each with the launch counts
+   set to 0 just before it and read just after: the main path, 1M x 768
+   f32 cosine with metadata (batch 1 and 64, top-100, top-2000, filter,
+   delete, self-query, recall@10 against an exact ground truth); BASELINE config #2, 1M x 128
    euclidean top-100 at batch 64; config #4, 1M x 1536 bf16 (batch 1 and
    64, rerank top-10 and top-300); config #1, a flush + reopen at 100K x
    384; ``ivf``, BASELINE config #3's regime: 1M x 768 f32 clustered rows
@@ -47,7 +47,19 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed both through the exact scan and through the IVF kernel with
    ``index_type="ivf"``); ``ivf_small``, 200K x
    384 bf16 with ``enable_ann=True``, flushed and reopened, the index
-   served from its sidecar without a rebuild; and ``serve``, the REST
+   served from its sidecar without a rebuild; ``graph``, the JAX
+   package's beam-graph regime (300K x 768 f32 cosine, 300 centres, unit
+   noise) with ``index_type="beam_graph"``: added in 3 x 100K (a build,
+   then two incremental extends), rebuilt by ``optimize()`` (its insert
+   and refine passes timed), recall@10 of 1,000 held-out queries at ef
+   100 and 200, batch 1/8/64 timed and profiled through the graph with no
+   flat-scan launch (the store's ANN->exact fallback would hide a failing
+   graph search), a 10K incremental add whose rows find themselves, a 10%
+   filter through the graph and a 1% filter through the exact scan, 1%
+   deleted, flush + reopen serving ``ann_graph.npz``; ``graph_native``,
+   10K x 768 with ``build_backend="cpu"``: the native C++ builder
+   (compiled by g++ at first use) builds the graph, the card searches
+   it; and ``serve``, the REST
    server (``tpu_vector_db_torch.api.app.create_app`` on the card, on
    127.0.0.1 at a free port, spoken to over TCP with aiohttp): a 1M x
    768 f32 cosine store made by ``/admin/create_store`` and filled by 8
@@ -59,7 +71,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    top-100, a filter, an add with self-queries, a delete, the request
    count in ``/monitoring/prometheus``, the card in ``/health`` and
    ``/system/info``, and the device's busy share of a burst of 64
-   requests. After each path the kernels
+   requests, and then (its own ``sdk`` launch line) the port's SDK: health,
+   10 queries and a batch query equal to the store's own, and an
+   ``index_type="hnsw"`` graph store created, filled and queried. After
+   each path the kernels
    are held against their plain version once more on that store's own
    rows, buckets, masks, batch sizes and k, and the big-k calls of the
    main path (top-2000 b1) and config #2 (top-100 b64) are profiled
@@ -917,9 +932,9 @@ def counted(fn, expect: str, forbid: tuple[str, ...] = ()):
     return out
 
 
-# an IVF-routed call launches the IVF kernel and no flat scan: an ANN
-# failure that fell back to the exact scan would fail the run
-IVF_ONLY = ("scan_kernel", "scan_kernel_bigk")
+# an ANN-routed call (IVF or graph) launches no flat scan: an ANN failure
+# that fell back to the exact scan would fail the run
+FLAT_SCANS = ("scan_kernel", "scan_kernel_bigk")
 
 
 def free_card() -> None:
@@ -1186,12 +1201,12 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
               "bucket_copy_mb": st["memory_mb"]})
         for q_n, reps in ((1, 20), (8, 10)):
             r = counted(lambda: timed_queries(store, qs[:q_n], 10, reps),
-                        "ivf_kernel", IVF_ONLY)
+                        "ivf_kernel", FLAT_SCANS)
             emit({"phase": "ivf", "case": f"768D IVF top-10 b{q_n}",
                   "nprobe": ann.nprobe, **r})
         profiled = counted(lambda: device_share(store, qs[:1], 10, 20,
                                                 EXPECT_IVF),
-                           "ivf_kernel", IVF_ONLY)
+                           "ivf_kernel", FLAT_SCANS)
         emit({"phase": "ivf", "case": "768D IVF top-10 b1 profiled",
               **profiled})
         # recall@10 of 64 queries, in batches of 8 (auto mode sends
@@ -1199,7 +1214,7 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
         res = []
         for i in range(0, 64, 8):
             res += counted(lambda: store.batch_query(qs[i:i + 8], k=10),
-                           "ivf_kernel", IVF_ONLY)
+                           "ivf_kernel", FLAT_SCANS)
         (gt_vals, _), keys = exact_topk(store._db[:N], qs, 10, "cosine")
         recall = tie_aware_recall(res, keys, gt_vals, 10)
         emit({"phase": "ivf", "case": "recall@10 64q", "recall": recall,
@@ -1210,7 +1225,7 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
         prepared = store._prepare_queries(qs[:8])
         ids, keys = counted(lambda: ann.search(
             prepared, store._db, store._count, k=10, nprobe=nb),
-            "ivf_kernel", IVF_ONLY)
+            "ivf_kernel", FLAT_SCANS)
         fkeys, fids = store._flat_topk(qs[:8], 10, None)
         err, keys_ok, ids_ok = compare(
             torch.from_numpy(keys), torch.from_numpy(ids),
@@ -1237,7 +1252,7 @@ def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
             p["index_type"] = "ivf"
             try:
                 ivf = counted(lambda: timed_queries(store, qs[:q_n], 10, 10),
-                              "ivf_kernel", IVF_ONLY)
+                              "ivf_kernel", FLAT_SCANS)
             finally:
                 p["index_type"] = "auto"
             emit({"phase": "ivf", "case": f"crossover top-10 b{q_n}",
@@ -1280,9 +1295,9 @@ def path_ivf_small(g, tmp: Path, counts: dict, errs: dict) -> None:
         check(store.get_stats()["index_type"] == "ivf"
               and store._ann.size == n, "the bf16 store has no full index")
         before = counted(lambda: store.batch_query(qs, k=10), "ivf_kernel",
-                         IVF_ONLY)
+                         FLAT_SCANS)
         r = counted(lambda: timed_queries(store, qs[:1], 10, 20),
-                    "ivf_kernel", IVF_ONLY)
+                    "ivf_kernel", FLAT_SCANS)
         t0 = time.perf_counter()
         store.flush()
         flush_s = time.perf_counter() - t0
@@ -1295,7 +1310,7 @@ def path_ivf_small(g, tmp: Path, counts: dict, errs: dict) -> None:
         check(served, "the reopened store rebuilt its index instead of "
               "serving ann_ivf.npz")
         after = counted(lambda: reopened.batch_query(qs, k=10), "ivf_kernel",
-                        IVF_ONLY)
+                        FLAT_SCANS)
         check([a[0] for a in after] == [b[0] for b in before],
               "the reopened store answers differently")
         emit({"phase": "ivf_small", "case": f"{n}x{d} bf16 IVF top-10 b1",
@@ -1308,6 +1323,288 @@ def path_ivf_small(g, tmp: Path, counts: dict, errs: dict) -> None:
         hold_index(s_, "ivf_small", qs[:q_n], 10, errs, label=label)
     del store, reopened
     free_card()
+
+
+# ------------------------------------------------------- the graph paths
+
+# The JAX package's graph regime, "realistic spread"
+# (benchmarks/beam_ef_sweep.py:29-36,106): 300 centres drawn from N(0, I),
+# each row its centre plus 1.0 N(0, I); the cosine store normalizes them
+GRAPH_N, GRAPH_ADDS, GRAPH_CENTRES = 300_000, 3, 300
+GRAPH_QUERIES, GRAPH_EXTRA = 1000, 10_000
+
+
+def spread_rows(g, centres, n: int):
+    import torch
+    pick = torch.randint(0, centres.shape[0], (n,), generator=g,
+                         device="cuda")
+    return centres[pick] + torch.randn((n, centres.shape[1]), generator=g,
+                                       device="cuda")
+
+
+def graph_routed(fn):
+    """Run fn; no flat-scan kernel may launch in it (the store's
+    ANN->exact fallback would hide a failing graph search)."""
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    before = {name: LAUNCHES[name] for name in FLAT_SCANS}
+    out = fn()
+    launched = {name: LAUNCHES[name] - before[name] for name in FLAT_SCANS}
+    check(not any(launched.values()), f"a graph-routed call launched "
+          f"{launched}: the store fell back to the exact scan")
+    return out
+
+
+@contextlib.contextmanager
+def recording(cls, name: str, calls: list):
+    """cls.name wrapped for the block: each call appends its result."""
+    fn = getattr(cls, name)
+
+    def spy(*a, **kw):
+        calls.append(fn(*a, **kw))
+        return calls[-1]
+
+    setattr(cls, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, fn)
+
+
+@contextlib.contextmanager
+def timed_passes(ann):
+    """The index's insert pass and refine pass, each timed to the device's
+    end for the block (instance attributes over the class's methods,
+    removed after it); yields the seconds of each."""
+    import torch
+    seconds = {"insert": 0.0, "refine": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    ann._insert_range = timed("insert", ann._insert_range)
+    ann.refine = timed("refine", ann.refine)
+    try:
+        yield seconds
+    finally:
+        del ann._insert_range, ann.refine
+
+
+def graph_profiled(store, queries: np.ndarray, k: int, reps: int) -> dict:
+    """torch.profiler over ``reps`` graph-routed batch_query calls: the
+    window, the device's time by op and its busy share (the profiler
+    slows the host, so the share is a lower bound)."""
+    window_ms, by_name, _, _ = graph_routed(lambda: profile_device(
+        lambda: store.batch_query(queries, k=k), reps))
+    busy = sum(by_name.values())
+    return {"Q": len(queries), "k": k, "reps": reps,
+            "window_ms_per_call": window_ms, "device_ms_per_call": busy,
+            "device_busy_share": busy / window_ms,
+            "device_ms_by_op": top_kernels(by_name)}
+
+
+def graph_recall(store, qs: np.ndarray, n: int, k: int = 10) -> float:
+    """Tie-aware recall@k of graph-routed batches of 64 against the exact
+    top-k of the store's own first n rows."""
+    res = []
+    for i in range(0, len(qs), 64):
+        res += graph_routed(lambda: store.batch_query(qs[i:i + 64], k=k))
+    db = store._db[:n, :store.config.dimension]
+    (gt_vals, _), keys = exact_topk(db, qs, k, "cosine")
+    return tie_aware_recall(res, keys, gt_vals, k)
+
+
+def path_graph(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
+    """300K x 768 f32 cosine in the JAX package's graph regime with
+    enable_ann=True, index_type="beam_graph" and the graph's defaults:
+    added in 3 x 100K (a build, then two incremental extends), rebuilt by
+    optimize(); recall@10 at ef 100 and 200, batch 1/8/64 timed and
+    profiled through the graph (no flat-scan launch), an incremental add,
+    a 10% filter through the graph, a 1% filter through the exact scan,
+    deletes, and a flush + reopen that serves ann_graph.npz."""
+    import torch
+    from tpu_vector_db_torch import TorchVectorStore, create_vector_store
+    from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex
+    d, n = 768, GRAPH_N
+    part = n // GRAPH_ADDS
+    centres = torch.randn((GRAPH_CENTRES, d), generator=g, device="cuda")
+    qs = spread_rows(g, centres, GRAPH_QUERIES).cpu().numpy()
+    meta = [{"d10": i % 10, "d100": i % 100}
+            for i in range(n + GRAPH_EXTRA)]
+    out = {}
+    with counting("graph", ("scan_kernel",), counts):
+        store = create_vector_store(
+            tmp / "graph", dimension=d, device="cuda", persist_mode="lazy",
+            enable_ann=True, ann_params={"index_type": "beam_graph"})
+        add_s = []
+        for start in range(0, n, part):
+            rows = spread_rows(g, centres, part).cpu().numpy()
+            t0 = time.perf_counter()
+            store.add_vectors(rows, meta[start:start + part])
+            add_s.append(time.perf_counter() - t0)
+        ann = store._ann
+        check(isinstance(ann, BeamGraphIndex) and ann.size == n,
+              "the graph does not cover the added rows")
+        emit({"phase": "graph", "case": f"add {n}x{d} f32 in {GRAPH_ADDS} "
+              "batches", "first_add_with_build_seconds": add_s[0],
+              "incremental_add_seconds": add_s[1:],
+              "ann_recall_estimate":
+                  store.get_stats()["ann_recall_estimate"]})
+        with timed_passes(ann) as passes:
+            t0 = time.perf_counter()
+            store.optimize()
+            opt_s = time.perf_counter() - t0
+        check(store._ann is ann, "optimize() replaced the graph index")
+        st = ann.get_stats()
+        out["build"] = {"optimize_seconds": opt_s,
+                        "insert_pass_seconds": passes["insert"],
+                        "refine_pass_seconds": passes["refine"],
+                        "nodes": st["nodes"],
+                        "avg_degree": st["avg_degree"],
+                        "entries": len(ann._entries)}
+        emit({"phase": "graph", "case": "optimize (full rebuild)",
+              **out["build"], "build_time_s": ann.build_time_s,
+              "M": st["M"], "ef_construction": st["ef_construction"],
+              "alpha": st["alpha"], "graph_mb": st["memory_mb"]})
+        p = store.config.ann_params
+        for ef in (100, 200):
+            p["ef_search"] = ef
+            try:
+                recall = graph_recall(store, qs, n)
+            finally:
+                p.pop("ef_search")
+            out[f"recall_ef{ef}"] = recall
+            emit({"phase": "graph", "case": f"recall@10 {GRAPH_QUERIES}q "
+                  f"ef{ef}", "recall": recall})
+        check(out["recall_ef100"] >= 0.95,
+              f"graph recall@10 at ef 100 = {out['recall_ef100']} < 0.95")
+        for q_n, reps in ((1, 20), (8, 10), (64, 10)):
+            r = graph_routed(lambda: timed_queries(store, qs[:q_n], 10,
+                                                   reps))
+            out[f"b{q_n}"] = r
+            emit({"phase": "graph", "case": f"768D graph top-10 b{q_n}",
+                  **r})
+            r = graph_profiled(store, qs[:q_n], 10, 5)
+            emit({"phase": "graph", "case": f"768D graph top-10 b{q_n} "
+                  "profiled", **r})
+            out[f"b{q_n}_busy"] = r["device_busy_share"]
+
+        # incremental add: the graph extends by insertion, no rebuild
+        extra = spread_rows(g, centres, GRAPH_EXTRA).cpu().numpy()
+        with recording(BeamGraphIndex, "build", []) as builds:
+            t0 = time.perf_counter()
+            store.add_vectors(extra, meta[n:])
+            inc_s = time.perf_counter() - t0
+        total = n + GRAPH_EXTRA
+        check(not builds and store._ann is ann and ann.size == total,
+              "the incremental add rebuilt the graph")
+        res = graph_routed(lambda: store.batch_query(extra[:100], k=1))
+        found = sum(r[0][0] == n + i for i, r in enumerate(res))
+        check(found == 100, f"{100 - found} of 100 added rows did not "
+              "return themselves first")
+        emit({"phase": "graph", "case": f"incremental add {GRAPH_EXTRA}",
+              "seconds": inc_s, "self_first": found, "nodes": ann.size})
+
+        # a filter keeping 10% goes through the graph (post-filtered
+        # oversample); one keeping 1% goes to the exact scan
+        res = graph_routed(lambda: store.batch_query(
+            qs[:64], k=10, filter_metadata={"d10": 3}))
+        check(all(m["d10"] == 3 for r in res for m in r[2]),
+              "the 10% filter returned a non-matching row")
+        hits = [len(r[0]) for r in res]
+        res = counted(lambda: store.batch_query(
+            qs[:64], k=10, filter_metadata={"d100": 7}), "scan_kernel")
+        check(all(len(r[0]) == 10 and all(m["d100"] == 7 for m in r[2])
+                  for r in res), "the 1% filter's exact answer is wrong")
+        emit({"phase": "graph", "case": "filters", "d10_route": "graph",
+              "d10_mean_hits": float(np.mean(hits)), "d10_min_hits":
+              min(hits), "d100_route": "scan_kernel"})
+
+        # delete 1% of the rows: no deleted id comes back
+        dead = np.random.default_rng(seed + 13).choice(
+            total, total // 100, replace=False)
+        store.delete_vectors(dead)
+        res = graph_routed(lambda: store.batch_query(qs[:64], k=10))
+        back = set(dead.tolist()) & {i for r in res for i in r[0]}
+        check(not back and all(len(r[0]) == 10 for r in res),
+              f"deleted ids came back: {sorted(back)[:5]}")
+        emit({"phase": "graph", "case": "delete 1%", "deleted": len(dead),
+              "returned_deleted": 0})
+
+        # flush and reopen: the graph loads from ann_graph.npz, no build
+        before = graph_routed(lambda: store.batch_query(qs[:64], k=10))
+        t0 = time.perf_counter()
+        store.flush()
+        flush_s = time.perf_counter() - t0
+        with recording(BeamGraphIndex, "build", builds):
+            t0 = time.perf_counter()
+            reopened = TorchVectorStore(tmp / "graph", device="cuda")
+            reopen_s = time.perf_counter() - t0
+        served = (not builds and isinstance(reopened._ann, BeamGraphIndex)
+                  and not reopened._ann_stale
+                  and reopened._ann.size == total
+                  and reopened._ann.build_time_s == 0.0)
+        check(served, "the reopened store rebuilt its graph instead of "
+              "serving ann_graph.npz")
+        after = graph_routed(lambda: reopened.batch_query(qs[:64], k=10))
+        check([a[0] for a in after] == [b[0] for b in before],
+              "the reopened store answers differently")
+        emit({"phase": "graph", "case": "flush + reopen",
+              "flush_seconds": flush_s, "reopen_seconds": reopen_s,
+              "graph_served": served, "same_answers": True})
+    hold_store(reopened, "graph", qs[:64], 10, errs, {"d100": 7})
+    del store, reopened, ann
+    free_card()
+    return out
+
+
+def path_graph_native(g, tmp: Path, counts: dict, errs: dict) -> dict:
+    """10K x 768 f32 cosine with build_backend="cpu" on a CUDA store: the
+    port's loader builds native/graph_builder.cpp at first use, the graph
+    is built on the host and searched on the card."""
+    import torch
+    from tpu_vector_db_torch import create_vector_store
+    from tpu_vector_db_torch.index import native
+    from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex
+    d, n = 768, 10_000
+    built_before = sorted(p.name for p in
+                          (REPO / "native").glob("libvdbgraph-*.so"))
+    centres = torch.randn((GRAPH_CENTRES, d), generator=g, device="cuda")
+    rows = spread_rows(g, centres, n).cpu().numpy()
+    qs = spread_rows(g, centres, 64).cpu().numpy()
+    with counting("graph_native", (), counts):
+        store = create_vector_store(
+            tmp / "graph_native", dimension=d, device="cuda",
+            persist_mode="off", enable_ann=True,
+            ann_params={"index_type": "beam_graph", "build_backend": "cpu"})
+        with recording(BeamGraphIndex, "build_cpu", []) as stats:
+            t0 = time.perf_counter()
+            store.add_vectors(rows)
+            add_s = time.perf_counter() - t0
+        check(native.available() and [s["backend"] for s in stats]
+              == ["cpu-native"], f"the native builder did not build the "
+              f"graph: {stats}")
+        check(store._ann._graph_dev.device.type == "cuda",
+              "the native graph is not on the card")
+        recall = graph_recall(store, qs, n)
+        out = {"native_build_seconds": stats[0]["build_time_s"],
+               "add_seconds": add_s, "recall": recall,
+               "compiled_here": not built_before}
+        emit({"phase": "graph_native", "case": f"{n}x{d} f32 cpu-native "
+              "build, card search", **out, "backend": stats[0]["backend"],
+              "library": sorted(p.name for p in (REPO / "native").glob(
+                  "libvdbgraph-*.so"))})
+        check(recall >= 0.95, f"native graph recall@10 = {recall} < 0.95")
+    hold_store(store, "graph_native", qs, 10, errs)
+    del store
+    free_card()
+    return out
 
 
 # ------------------------------------------------------- the serve path
@@ -1467,6 +1764,65 @@ def same_results(results: list[dict], ids, scores) -> bool:
 def coalescer_stats(client: Client) -> dict:
     return ok(client.get("/performance/stats"), "performance stats")[
         "coalescer"]
+
+
+SDK_GRAPH_ROWS = 4096            # rows of the SDK's hnsw store
+
+
+def path_sdk(g, server, manager, who: dict, qs: np.ndarray,
+             counts: dict, errs: dict) -> None:
+    """The port's SDK (httpx, the sync client) against the serve path's
+    server: health; 10 queries and one batch query on its store, each
+    equal to the store's own batch_query; a graph store made through
+    /admin/create_store with index_type="hnsw", filled through the batch
+    API and queried (through the graph: no flat-scan launch)."""
+    from tpu_vector_db_torch.sdk import create_client
+    from tpu_vector_db_torch.security.auth import auth_config
+    key = auth_config.admin_key
+    user, model = who["user_id"], who["model_id"]
+    store = manager.get_store(**who, create=False)
+    d = store.config.dimension
+    with counting("sdk", ("scan_kernel",), counts), create_client(
+            base_url=server.url, api_key=key, admin_key=key,
+            sync=True) as sdk:
+        health = sdk.health_check()
+        check(health["status"] in ("healthy", "degraded"),
+              f"SDK health: {health}")
+        direct = store.batch_query(qs[:10], k=10)
+        for i, (ids, scores, _) in enumerate(direct):
+            res = sdk.query_vectors(user, model, qs[i], k=10)
+            check(same_results([vars(r) for r in res], ids, scores),
+                  f"SDK query {i} differs from the store's batch_query")
+        batch = sdk.batch_query_vectors(user, model, qs[:10], k=10)
+        check(all(same_results([vars(r) for r in row], ids, scores)
+                  for row, (ids, scores, _) in zip(batch, direct)),
+              "the SDK's batch query differs from the store's")
+        graph = {"user_id": user, "model_id": "sdk_hnsw"}
+        sdk.create_store(**graph, dimension=d, index_type="hnsw")
+        rows = unit_rows(g, SDK_GRAPH_ROWS, d).cpu().numpy()
+        t0 = time.perf_counter()
+        op = sdk.batch_add_vectors(**graph, vectors=rows, chunk_size=1024)
+        fill_s = time.perf_counter() - t0
+        check(op["status"] == "completed", f"SDK batch add: {op}")
+        stats = sdk.get_store_stats(**graph)
+        check(stats["index_type"] == "beam_graph"
+              and stats["vector_count"] == SDK_GRAPH_ROWS,
+              f"the hnsw store is not a filled graph store: {stats}")
+        got = graph_routed(lambda: sdk.batch_query_vectors(
+            **graph, queries=rows[:8], k=10))
+        own = graph_routed(lambda: manager.get_store(
+            **graph, create=False).batch_query(rows[:8], k=10))
+        check([[r.index for r in row] for row in got]
+              == [ids for ids, _, _ in own]
+              and [row[0].index for row in got] == list(range(8)),
+              "the SDK's graph query differs from the store's own")
+        emit({"phase": "serve", "case": "sdk", "health": health["status"],
+              "queries_same": 10, "batch_same": True,
+              "hnsw_store": stats["index_type"],
+              "hnsw_rows": SDK_GRAPH_ROWS, "hnsw_fill_seconds": fill_s,
+              "hnsw_self_first": 8, "requests": sdk.get_stats()})
+    hold_store(manager.get_store(**graph, create=False), "sdk", qs[:64], 10,
+               errs)
 
 
 def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
@@ -1637,6 +1993,7 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
                   top_kernels(by_name), "launches_seen": launches_seen(
                       seen_n, ("scan_small_k",))})
         store = manager.get_store(**who, create=False)
+        path_sdk(g, server, manager, who, qs, counts, errs)
         for q_n, k, flt in ((1, 10, None), (64, 10, None), (1, 100, None),
                             (64, 100, None), (1, 10, {"cat": 3})):
             hold_store(store, "serve", qs[:q_n], k, errs, flt)
@@ -1685,6 +2042,8 @@ def main() -> int:
         path_config1(g, args.seed, tmp, counts, errs)
         headline["ivf_kernel"] = path_ivf(g, tmp, counts, errs)
         path_ivf_small(g, tmp, counts, errs)
+        path_graph(g, args.seed, tmp, counts, errs)
+        path_graph_native(g, tmp, counts, errs)
         path_serve(g, args.seed, tmp, counts, errs)
         kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name],

@@ -2,9 +2,11 @@
 
 The cases of tests/test_api.py, run against ``tpu_vector_db_torch``'s app
 on the CPU (``device="cpu"``, every kernel's plain version), plus what is
-particular to the port: the 501 for the beam graph it lacks, the app's
-refusal to start on the CPU when it was asked for the card, imports that
-touch no CUDA, and one case on the card.
+particular to the port: beam-graph stores (``beam_graph`` and its
+``hnsw`` alias) created, filled and queried where the port answered 501
+before the graph was ported, the app's refusal to start on the CPU when
+it was asked for the card, imports that touch no CUDA, and one case on
+the card.
 """
 
 import asyncio
@@ -671,26 +673,48 @@ def test_create_store_over_hbm_budget_413(client_factory, monkeypatch):
 
 # ------------------------------------------------------- port-only cases
 
-def test_beam_graph_store_501(client_factory):
-    """The beam graph is not ported: asking for it is a 501 that names
-    it, not a bare 500; on int8/int4 rows it stays the 400 of the config
-    check, as in the JAX server."""
+def test_beam_graph_store_501(client_factory, rng):
+    """Beam-graph stores, which the port answered with a 501 until the
+    graph was ported: ``beam_graph`` and its ``hnsw`` alias are created
+    (201) as graph stores, filled and queried through the graph; on
+    int8/int4 rows the graph stays the 400 of the config check, as in the
+    JAX server."""
     async def go():
         async with client_factory() as client:
+            vecs = rng.standard_normal((600, 32)).astype(np.float32)
             for itype in ("beam_graph", "hnsw"):
+                who = {"user_id": "bg", "model_id": itype}
                 r = await client.post("/admin/create_store", headers=ADMIN,
-                                      json={"user_id": "bg", "model_id": itype,
-                                            "dimension": 32,
-                                            "index_type": itype})
-                assert r.status == 501, await r.text()
-                assert "beam" in (await r.json())["error"]
+                                      json={**who, "dimension": 32,
+                                            "index_type": itype,
+                                            "ann_params": {
+                                                "M": 8,
+                                                "ef_construction": 64}})
+                assert r.status == 201, await r.text()
+                assert (await r.json())["index_type_requested"] == \
+                    "beam_graph"
+                r = await client.post("/vectors/add", headers=AUTH, json={
+                    **who, "vectors": vecs.tolist(),
+                    "metadata": [{"i": i} for i in range(600)]})
+                assert r.status == 200, await r.text()
+                r = await client.get("/vectors/stats", params=who,
+                                     headers=AUTH)
+                assert (await r.json())["index_type"] == "beam_graph"
+                r = await client.post("/vectors/batch_query", headers=AUTH,
+                                      json={**who, "k": 3,
+                                            "queries": vecs[[5, 321]].tolist()})
+                assert r.status == 200
+                top = [row[0] for row in (await r.json())["results"]]
+                assert [t["index"] for t in top] == [5, 321]
+                assert top[0]["metadata"] == {"i": 5}
+                assert top[0]["similarity"] > 0.999
             r = await client.post("/admin/create_store", headers=ADMIN, json={
                 "user_id": "bg", "model_id": "q", "dimension": 64,
                 "storage_dtype": "int4", "index_type": "beam_graph"})
             assert r.status == 400
-            # nothing was left behind: the same name is free
+            # nothing was left behind: the name is free
             r = await client.post("/admin/create_store", headers=ADMIN, json={
-                "user_id": "bg", "model_id": "hnsw", "dimension": 32})
+                "user_id": "bg", "model_id": "q", "dimension": 32})
             assert r.status == 201
     run(go())
 
@@ -720,6 +744,7 @@ def test_imports_touch_no_cuda():
         "import sys, torch\n"
         "import tpu_vector_db_torch, tpu_vector_db_torch.service\n"
         "import tpu_vector_db_torch.api.app, tpu_vector_db_torch.api.main\n"
+        "import tpu_vector_db_torch.sdk\n"
         "assert not torch.cuda.is_initialized()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tpu_vector_db' or m.startswith('tpu_vector_db.')]\n"

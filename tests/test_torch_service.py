@@ -680,5 +680,10 @@ def test_worker_pool_stress(tmp_path):
         assert [ids[0] for ids, _, _ in res] == list(range(50))
     store = mgr.get_store("u", "m", create=False)
     assert len(store) == 600
-    assert store.get_metadata([599]) == [{"i": 599}]
+    # the eleven concurrent adds land in whatever order the pool runs
+    # them: every row keeps the metadata it was added with, none is lost
+    meta = store.get_metadata(list(range(600)))
+    assert sorted(m["i"] for m in meta) == list(range(600))
+    found = store.batch_query(rows, k=1, use_ann=False)
+    assert [meta[ids[0]]["i"] for ids, _, _ in found] == list(range(600))
     mgr.shutdown()

@@ -5,8 +5,9 @@ Each app runs in process on the CPU (the JAX package on its CPU backend,
 the port with ``device="cpu"``) over 2,000 x 64 f32 rows made from a
 seed. The sequence: create, add with metadata, query, batch query at
 k 10 and 40, a filtered query, delete, get by id, count, stats, an
-``index_type="ivf"`` store probed in full, the 401/403/404/409/413/422
-cases, and 16 concurrent queries folded by the coalescer. Both must give
+``index_type="ivf"`` store probed in full, an ``index_type="hnsw"``
+(beam graph) store built, queried and filtered, the 401/403/404/409/
+413/422 cases, and 16 concurrent queries folded by the coalescer. Both must give
 the same status codes, ids equal away from near-ties and similarities
 within 1e-5 (f32, sums in another order; the server rounds to 6 digits).
 
@@ -31,6 +32,8 @@ N, D = 2000, 64
 USER = "par"
 IVF_PARAMS = {"min_rows": 0, "n_clusters": 16, "nprobe": 16,
               "self_check": False}
+GRAPH_PARAMS = {"index_type": "beam_graph", "M": 8, "ef_construction": 64,
+                "ef_search": 64}
 
 
 def jax_app(base):
@@ -129,6 +132,20 @@ async def sequence(client: TestClient, rows, qs, meta) -> dict:
     await step("ivf_stats", "GET", "/vectors/stats", headers=AUTH,
                params=ivf)
 
+    graph = who("graph")
+    await step("graph_create", "POST", "/admin/create_store", headers=ADMIN,
+               json={**graph, "dimension": D, "index_type": "hnsw",
+                     "ann_params": GRAPH_PARAMS})
+    await step("graph_add", "POST", "/vectors/add", headers=AUTH,
+               json={**graph, "vectors": rows.tolist(), "metadata": meta})
+    await step("graph_batch", "POST", "/vectors/batch_query", headers=AUTH,
+               json={**graph, "queries": qs[:8].tolist(), "k": 10})
+    await step("graph_filtered", "POST", "/vectors/query", headers=AUTH,
+               json={**graph, "query": qs[2].tolist(), "k": 10,
+                     "filter_metadata": {"cat": 2}})
+    await step("graph_stats", "GET", "/vectors/stats", headers=AUTH,
+               params=graph)
+
     async def one(i):
         r = await client.post("/vectors/query", headers=AUTH,
                               json={**flat, "query": qs[i].tolist(),
@@ -198,7 +215,8 @@ def test_same_status_codes(both):
     assert set(got["coalesced"]) == {200}
 
 
-@pytest.mark.parametrize("step", ["query", "filtered", "after_delete"])
+@pytest.mark.parametrize("step", ["query", "filtered", "after_delete",
+                                  "graph_filtered"])
 def test_query_results(both, step):
     _, jax_out, port_out = both
     assert_results_match(port_out[step][1]["results"],
@@ -206,13 +224,18 @@ def test_query_results(both, step):
     if step == "filtered":
         assert all(r["metadata"]["cat"] == 1
                    for r in port_out[step][1]["results"])
+    if step == "graph_filtered":
+        assert port_out[step][1]["results"]
+        assert all(r["metadata"]["cat"] == 2
+                   for r in port_out[step][1]["results"])
     if step == "after_delete":
         deleted = jax_out["query"][1]["results"][0]["index"]
         assert deleted not in [r["index"]
                                for r in port_out[step][1]["results"]]
 
 
-@pytest.mark.parametrize("step", ["batch10", "batch40", "ivf_batch"])
+@pytest.mark.parametrize("step", ["batch10", "batch40", "ivf_batch",
+                                  "graph_batch"])
 def test_batch_results(both, step):
     _, jax_out, port_out = both
     got, want = port_out[step][1]["results"], jax_out[step][1]["results"]
@@ -236,7 +259,7 @@ def test_coalesced_results(both, data):
 
 def test_mutations_and_reads(both):
     _, jax_out, port_out = both
-    for step in ("add0", "add1", "ivf_add"):
+    for step in ("add0", "add1", "ivf_add", "graph_add"):
         for key in ("added", "total"):
             assert port_out[step][1][key] == jax_out[step][1][key]
     assert port_out["delete"][1] == jax_out["delete"][1]
@@ -245,9 +268,10 @@ def test_mutations_and_reads(both):
     g, w = port_out["get"][1], jax_out["get"][1]
     assert g["ids"] == w["ids"] and g["metadata"] == w["metadata"]
     np.testing.assert_array_equal(g["vectors"], w["vectors"])
-    for step in ("stats", "ivf_stats"):
+    for step in ("stats", "ivf_stats", "graph_stats"):
         assert port_out[step][1] == jax_out[step][1]
     assert port_out["ivf_stats"][1]["index_type"] == "ivf"
+    assert port_out["graph_stats"][1]["index_type"] == "beam_graph"
     names = [(s["user_id"], s["model_id"])
              for s in port_out["list"][1]["stores"]]
     assert names == [(s["user_id"], s["model_id"])
@@ -280,6 +304,13 @@ def test_port_serves_jax_written_stores(both, tmp_path, data):
                 "queries": qs[:8].tolist(), "k": 10})
             for g, w in zip((await r.json())["results"],
                             jax_out["ivf_batch"][1]["results"]):
+                assert_results_match(g, w)
+            # the graph store serves the JAX server's ann_graph.npz
+            r = await client.post("/vectors/batch_query", headers=AUTH, json={
+                "user_id": USER, "model_id": "graph",
+                "queries": qs[:8].tolist(), "k": 10})
+            for g, w in zip((await r.json())["results"],
+                            jax_out["graph_batch"][1]["results"]):
                 assert_results_match(g, w)
     asyncio.run(go())
 

@@ -290,12 +290,17 @@ def test_device_defaults_to_cuda(tmp_path):
 
 
 def test_enable_ann_is_not_served_by_flat(tmp_path):
-    """enable_ann=True builds the IVF index; only the beam graph, which
-    is not ported yet, still raises."""
-    with pytest.raises(NotImplementedError, match="beam_graph"):
-        create_vector_store(tmp_path / "s", dimension=D, device="cpu",
-                            enable_ann=True,
-                            ann_params={"index_type": "beam_graph"})
+    """enable_ann=True builds an index: the beam graph (which raised
+    NotImplementedError until it was ported) for index_type="beam_graph",
+    the IVF index past auto_flat_rows."""
+    from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex
+    g = create_vector_store(tmp_path / "s", dimension=D, device="cpu",
+                            enable_ann=True, persist_mode="off",
+                            ann_params={"index_type": "beam_graph", "M": 4,
+                                        "ef_construction": 32})
+    g.add_vectors(_rows(12, 300))
+    assert isinstance(g._ann, BeamGraphIndex) and g._ann.size == 300
+    assert g.get_stats()["index_type"] == "beam_graph"
     s = create_vector_store(tmp_path / "t", dimension=D, device="cpu",
                             enable_ann=True, persist_mode="off",
                             ann_params={"auto_flat_rows": 1000})
@@ -310,7 +315,11 @@ def test_import_pulls_in_no_jax():
             "tpu_vector_db_torch.ops._build, tpu_vector_db_torch.ops."
             "kmeans, tpu_vector_db_torch.ops.ivf_scan, "
             "tpu_vector_db_torch.ops.launches, "
-            "tpu_vector_db_torch.index.ivf\n"
+            "tpu_vector_db_torch.index.ivf, "
+            "tpu_vector_db_torch.index.beam_graph, "
+            "tpu_vector_db_torch.index.native, "
+            "tpu_vector_db_torch.pipeline._native, "
+            "tpu_vector_db_torch.sdk, tpu_vector_db_torch.sdk.client\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpu_vector_db' or "
             "m.startswith('tpu_vector_db.')]\n"

@@ -23,7 +23,7 @@ class MetricType(str, Enum):
 
 class IndexType(str, Enum):
     flat = "flat"
-    beam_graph = "beam_graph"   # graph ANN index: not ported yet (501)
+    beam_graph = "beam_graph"   # graph ANN index (index/beam_graph.py)
     hnsw = "hnsw"               # accepted alias for reference compatibility
     ivf = "ivf"                 # k-means + bucket-streamed probe scan
     auto = "auto"               # measured routing: flat below the exact-scan

@@ -36,6 +36,8 @@ async def banner(request: web.Request) -> web.Response:
         "features": [
             "flat exact search (cosine / euclidean / dot)",
             "IVF ANN index (k-means buckets, probe-scan kernel)",
+            "beam-graph ANN index (batched beam search, incremental "
+            "inserts, native C++ builder)",
             "multi-tenant stores with metadata filtering",
             "bf16 storage, int8/int4 capacity modes",
             "query coalescing into batched scans",
@@ -97,6 +99,7 @@ async def config(request: web.Request) -> web.Response:
         "device_count": acc["device_count"],
         "features": {
             "ann_index": True,
+            "ann_index_types": ["ivf", "beam_graph"],
             "batch_api": True,
             "sse_progress": True,
             "rate_limiting": True,

@@ -53,19 +53,21 @@ def _device_memory_bytes(device) -> int:
 class VectorStoreConfig:
     dimension: int = 384
     metric: str = "cosine"
-    # ANN index: IVF (index/ivf.py); index_type "auto" picks it from
-    # 100K rows. "beam_graph" is not ported yet: the store raises on it
+    # ANN index: IVF (index/ivf.py), which index_type "auto" picks from
+    # 100K rows, or the beam graph (index/beam_graph.py, "beam_graph")
     enable_ann: bool = False
     ann_params: dict = field(default_factory=lambda: {
         "M": 16, "ef_construction": 200, "ef_search": 100,
     })
-    # ann_params keys the store and its IVF index read: index_type,
-    # n_clusters, nprobe, bucket_rows, train_iters, ivf_layout,
+    # ann_params keys the store and its indexes read: index_type; IVF's
+    # n_clusters, nprobe, bucket_rows, train_iters, ivf_layout; the
+    # graph's M, ef_construction, ef_search, alpha, entry_cap,
+    # insert_budget_div, refine_budget_div, build_backend;
     # rerank_oversample, the routing thresholds (auto_flat_rows,
     # ann_min_rows, auto_batch_flat_q/_rows, filter_exact_selectivity,
     # deleted_exact_live_frac) and the recall guard's (self_check,
-    # remediate_target, auto_remediate, remediate_nprobe_max, recall_warn,
-    # recall_floor). The graph's keys (M, ef_*) persist unchanged.
+    # remediate_target, auto_remediate, remediate_nprobe_max,
+    # remediate_max_refines, recall_warn, recall_floor).
     # Storage dtype for the device-resident matrix. bf16 halves the bytes
     # the scan streams at ~1e-3 score error; int8/int4 are capacity modes.
     storage_dtype: str = "float32"

@@ -13,22 +13,25 @@ Counterpart of ``tpu_vector_db/store/vector_store.py::TPUVectorStore``:
   kernel reads beside the rows;
 * an exact query is one launch of ``ops/cuda_scan.flat_topk`` (any k)
   and one packed device-to-host copy;
-* with ``enable_ann=True`` the store keeps an IVF index
-  (``index/ivf.py``; ``index_type="auto"`` picks it from 100K rows) and
-  routes each query as the JAX store does: to the index, or to the exact
-  scan for k > 32, batches of 32 and more (auto mode), filters that keep
-  few rows, heavily deleted stores, a stale index and a low sampled
-  recall. The index is refreshed on add outside the store lock, rebuilt
-  by ``optimize()``, and saved beside the store as ``ann_ivf.npz``.
+* with ``enable_ann=True`` the store keeps an ANN index: IVF
+  (``index/ivf.py``; ``index_type="auto"`` picks it from 100K rows) or
+  the beam graph (``index/beam_graph.py``, ``index_type="beam_graph"``),
+  and routes each query as the JAX store does: to the index, or to the
+  exact scan for IVF past k = 32, batches of 32 and more (auto mode),
+  filters that keep few rows, heavily deleted stores, a stale index and a
+  low sampled recall. The index is refreshed on add outside the store
+  lock (the graph extends by insertion, with no rebuild), rebuilt by
+  ``optimize()``, and saved beside the store as ``ann_ivf.npz`` or
+  ``ann_graph.npz``. ``ann_params["build_backend"]`` keeps the JAX
+  values: ``"tpu"`` (the default) builds the graph on the store's device,
+  ``"cpu"``/``"auto"`` with the native C++ builder
+  (``native/graph_builder.cpp``) when it is available, else on the device.
 
 The store runs on ``device`` ("cuda" by default). It raises when CUDA is
 absent unless the caller passes ``device="cpu"``, where every kernel's
 plain version runs instead. The on-disk format, the IVF sidecar
 included, is the JAX package's, so a store saved by either package opens
 in the other and serves its index without a rebuild.
-
-``index_type="beam_graph"`` raises NotImplementedError: the graph index
-is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ import numpy as np
 import torch
 
 from tpu_vector_db_torch.ops import distance as D
+from tpu_vector_db_torch.index import native
+from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex
 from tpu_vector_db_torch.index.ivf import IVFIndex
 from tpu_vector_db_torch.ops.cuda_scan import flat_topk
 from tpu_vector_db_torch.ops.monitor import performance_monitor
@@ -182,11 +187,6 @@ class TorchVectorStore:
                             f"{field_}={have!r}, got config with "
                             f"{want!r}")
             self.config = config
-        if self.config.enable_ann and self.config.ann_params.get(
-                "index_type", "auto") == "beam_graph":
-            raise NotImplementedError(
-                "index_type='beam_graph' needs the beam-graph index, which "
-                "is not ported yet; use 'auto', 'ivf' or 'flat'")
         self.store_path = Path(store_path)
         ensure_directory(self.store_path)
         self._lock = threading.RLock()
@@ -236,7 +236,7 @@ class TorchVectorStore:
         self._scales: torch.Tensor | None = None    # (cap,) f32, int4 only
 
         # ANN index, built lazily
-        self._ann: IVFIndex | None = None
+        self._ann: IVFIndex | BeamGraphIndex | None = None
         self._ann_stale = True
         # index_type='auto': resolved from the store size, re-checked on
         # every full (re)build; see _auto_pick_kind
@@ -687,9 +687,9 @@ class TorchVectorStore:
 
     @property
     def _ann_kind(self) -> str:
-        """'ivf' or 'flat' (no index: the exact scan serves everything).
-        index_type='auto' (the default) resolves from the store size, see
-        _auto_pick_kind."""
+        """'beam_graph', 'ivf' or 'flat' (no index: the exact scan serves
+        everything). index_type='auto' (the default) resolves from the
+        store size, see _auto_pick_kind; the graph is an explicit choice."""
         requested = self.config.ann_params.get("index_type", "auto")
         if requested != "auto":
             return requested
@@ -704,29 +704,47 @@ class TorchVectorStore:
         flat_rows = self.config.ann_params.get("auto_flat_rows", 100_000)
         return "flat" if self._count < flat_rows else "ivf"
 
-    def _make_ann(self) -> IVFIndex:
+    def _make_ann(self) -> IVFIndex | BeamGraphIndex:
         p = self.config.ann_params
-        return IVFIndex(
+        if self._ann_kind == "ivf":
+            return IVFIndex(
+                dim=self.config.dimension, metric=self.metric,
+                n_clusters=p.get("n_clusters"), nprobe=p.get("nprobe", 32),
+                bucket_rows=p.get("bucket_rows"),
+                train_iters=p.get("train_iters", 10),
+                layout=p.get("ivf_layout", "auto"))
+        return BeamGraphIndex(
             dim=self.config.dimension, metric=self.metric,
-            n_clusters=p.get("n_clusters"), nprobe=p.get("nprobe", 32),
-            bucket_rows=p.get("bucket_rows"),
-            train_iters=p.get("train_iters", 10),
-            layout=p.get("ivf_layout", "auto"))
+            M=p.get("M", 16),
+            ef_construction=p.get("ef_construction", 200),
+            alpha=p.get("alpha", 1.2),
+            entry_cap=p.get("entry_cap", 4096),
+            insert_budget_div=p.get("insert_budget_div"),
+            refine_budget_div=p.get("refine_budget_div"),
+            device=self.device)
 
     def _ann_search(self, queries_prepared, fetch_k: int):
-        """The index's (ids, keys) in the store's final key convention
+        """The index's (ids, keys) in the store's final key convention:
+        the graph takes ef = max(ef_search, fetch_k), IVF takes nprobe
         (int8's raw x127 scale divided out, as in _flat_topk)."""
+        p = self.config.ann_params
+        if self._ann_kind == "beam_graph":
+            return self._ann.search(
+                queries_prepared, self._db, self._count, k=fetch_k,
+                ef_search=max(p.get("ef_search", 100), fetch_k),
+                sqnorms=self._sqnorms)
         ids, keys = self._ann.search(
             queries_prepared, self._db, self._count, k=fetch_k,
-            nprobe=self.config.ann_params.get("nprobe"),
-            sqnorms=self._sqnorms, scales=self._scales)
+            nprobe=p.get("nprobe"), sqnorms=self._sqnorms,
+            scales=self._scales)
         if self.config.storage_dtype == "int8":
             keys = np.where(np.isfinite(keys), keys * (1.0 / 127.0), keys)
         return ids, keys
 
     def _ann_quant_kwargs(self) -> dict:
         """IVF build/add kwargs for int4 storage: the per-row scales drive
-        the k-means dequantization."""
+        the k-means dequantization (the config refuses a graph on
+        quantized rows)."""
         return {"scales": self._scales} if self._quant4 else {}
 
     def _refresh_ann(self, incremental_from: int | None = None) -> None:
@@ -756,9 +774,14 @@ class TorchVectorStore:
                 self._ann = self._make_ann()
             if incremental_from in (None, 0) or \
                     self._ann.size != incremental_from:
-                self._ann.build(self._db, count, sqnorms=self._sqnorms,
-                                **self._ann_quant_kwargs())
+                if self._native_graph_build():
+                    self._ann.build_cpu(self._host_buf, count)
+                else:
+                    self._ann.build(self._db, count, sqnorms=self._sqnorms,
+                                    **self._ann_quant_kwargs())
             else:
+                # incremental adds extend on the device (a graph from
+                # either builder)
                 self._ann.add(self._db, incremental_from, count,
                               sqnorms=self._sqnorms,
                               **self._ann_quant_kwargs())
@@ -775,6 +798,23 @@ class TorchVectorStore:
             if self._count != count:
                 self._ann_stale = True
 
+    def _native_graph_build(self) -> bool:
+        """Whether a full graph build goes to the native C++ builder:
+        ``build_backend`` "cpu" or "auto" and the builder available. The
+        JAX values are kept ("tpu" is the store's device); without the
+        builder the graph is built on the store's device."""
+        if self._ann_kind != "beam_graph":
+            return False
+        backend = self.config.ann_params.get("build_backend", "tpu")
+        if backend not in ("cpu", "auto"):
+            return False
+        if native.available():
+            return True
+        if backend == "cpu":
+            logger.warning("native builder unavailable; building the graph "
+                           "on %s", self.device)
+        return False
+
     def _ann_self_check(self, sample: int = 100, k: int = 10) -> None:
         """Sampled recall@k of the index against the exact scan.
 
@@ -782,7 +822,8 @@ class TorchVectorStore:
         paths; below ``remediate_target`` (default 0.98) IVF doubles
         nprobe until it clears (_remediate_low_recall); below
         ``recall_warn`` (0.90) it warns; below ``recall_floor`` (0.50)
-        queries route to the exact scan. A hit is an id in the exact
+        queries route to the exact scan. The graph remediates by
+        full-budget refine passes instead. A hit is an id in the exact
         top-k, or a key that ties the exact k-th within 0.004 (bf16
         ties make the id set an arbitrary tie-break)."""
         p = self.config.ann_params
@@ -839,27 +880,53 @@ class TorchVectorStore:
 
     def _remediate_low_recall(self, est: float, target: float,
                               estimate) -> float:
-        """IVF recall is probe coverage: double nprobe (re-estimating
-        after each step) until the estimate clears ``target`` or nprobe
-        reaches ``remediate_nprobe_max`` (default: the built cluster
-        count). The new nprobe is written back to ann_params (so it
-        persists in the manifest) and to the sidecar."""
+        """Raise the index's recall until the estimate clears ``target``
+        (re-estimating after each step):
+
+        * IVF recall is probe coverage: double nprobe until nprobe reaches
+          ``remediate_nprobe_max`` (default: the built cluster count). The
+          new nprobe is written back to ann_params (so it persists in the
+          manifest);
+        * the beam graph runs full-budget refine passes
+          (refine_budget_div = 1) over its graph, at most
+          ``remediate_max_refines`` (default 2).
+
+        The changed index is written to its sidecar."""
         p = self.config.ann_params
-        start = int(p.get("nprobe", self._ann.nprobe))
-        cents = self._ann._centroids
-        built_clusters = 0 if cents is None else len(cents)
-        cap = int(p.get("remediate_nprobe_max",
-                        built_clusters or max(256, start * 8)))
-        nprobe = start
         changed = False
-        while est < target and nprobe < cap:
-            nprobe = min(nprobe * 2, cap)
-            self._ann.nprobe = nprobe
-            p["nprobe"] = nprobe
-            changed = True
-            est = estimate()
-            logger.warning("ANN recall remediation: nprobe %d -> %d, "
-                           "sampled recall %.3f", start, nprobe, est)
+        if self._ann_kind == "beam_graph":
+            max_refines = int(p.get("remediate_max_refines", 2))
+            old_div = self._ann.refine_budget_div
+            self._ann.refine_budget_div = 1
+            try:
+                for i in range(max_refines):
+                    if est >= target:
+                        break
+                    self._ann.refine(self._db, sqnorms=self._sqnorms,
+                                     passes=1)
+                    changed = True
+                    est = estimate()
+                    logger.warning(
+                        "ANN recall remediation: full-budget refine pass "
+                        "%d/%d, sampled recall %.3f", i + 1, max_refines,
+                        est)
+            finally:
+                self._ann.refine_budget_div = old_div
+        else:
+            start = int(p.get("nprobe", self._ann.nprobe))
+            cents = self._ann._centroids
+            built_clusters = 0 if cents is None else len(cents)
+            cap = int(p.get("remediate_nprobe_max",
+                            built_clusters or max(256, start * 8)))
+            nprobe = start
+            while est < target and nprobe < cap:
+                nprobe = min(nprobe * 2, cap)
+                self._ann.nprobe = nprobe
+                p["nprobe"] = nprobe
+                changed = True
+                est = estimate()
+                logger.warning("ANN recall remediation: nprobe %d -> %d, "
+                               "sampled recall %.3f", start, nprobe, est)
         if changed and self.config.persist_mode != "off":
             self._ann.save(self.store_path)
         return est
