@@ -33,8 +33,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed, on the candidate shapes of the IVF and flat batch-1 paths (the
    "merge" lines);
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
-   eight paths, and the server on a ninth, each with the launch counts
-   set to 0 just before it and read just after: the main path, 1M x 768
+   eight paths, the server on a ninth and the sharded store on a tenth,
+   each with the launch counts set to 0 just before it and read just
+   after: the main path, 1M x 768
    f32 cosine with metadata (batch 1 and 64, top-100, top-2000, filter,
    delete, self-query, recall@10 against an exact ground truth); BASELINE config #2, 1M x 128
    euclidean top-100 at batch 64; config #4, 1M x 1536 bf16 (batch 1 and
@@ -73,7 +74,20 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``/system/info``, and the device's busy share of a burst of 64
    requests, and then (its own ``sdk`` launch line) the port's SDK: health,
    10 queries and a batch query equal to the store's own, and an
-   ``index_type="hnsw"`` graph store created, filled and queried. After
+   ``index_type="hnsw"`` graph store created, filled and queried; and
+   ``sharded``, BASELINE config #5: 10M x 128 f32 cosine (rows N(0, I),
+   metadata on every row, 10 x 1M adds) in a ``ShardedVectorStore`` over
+   ``make_device_mesh()`` beside an unsharded store on the same rows
+   (top-10 and top-100 at batch 1 and 64, a 1% filter, 0.1% deleted,
+   recall@10; every answer equal to the unsharded store's), flushed and
+   reopened at P = 4 co-located shards (``["cuda:0"] * 4``: four scans
+   and one k·P merge a call, the same answers), a sharded IVF (2M x 128
+   in the ``ivf`` path's regime, P = 2, recall@10 at nprobe 32 and 64, a
+   full probe equal to the sharded flat scan), a sharded beam graph (100K
+   x 128 of the graph regime, P = 2, native build, a 10K extend, recall@10
+   at ef 100, flush + reopen from ``ann_sharded_graph.npz``) and the
+   manager with ``sharded=True``; its holds cover every shard and the
+   merge. After
    each path the kernels
    are held against their plain version once more on that store's own
    rows, buckets, masks, batch sizes and k, and the big-k calls of the
@@ -82,7 +96,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    after the path's launch counts are read);
 5. prints one JSON line of the kernels (launches from each kernel's
    headline path: ``main`` for the flat kernels, ``ivf`` for the IVF
-   kernel), the card's name and power limit, and last ``{"ok": true,
+   kernel, ``sharded`` for ``merge_small_k`` alone, the k·P merge), the
+   card's name and power limit, and last ``{"ok": true,
    "device": {...}}``.
 
 Every phase that fails makes the script exit non-zero. Without a CUDA
@@ -117,16 +132,20 @@ PEAK_OPS = {"float32": 67e12,      # CUDA cores, f32
 KEY_TOL = 1e-4
 SOURCE = {"scan_kernel": "tpu_vector_db_torch/csrc/flat_topk.cu",
           "scan_kernel_bigk": "tpu_vector_db_torch/csrc/flat_topk.cu",
-          "ivf_kernel": "tpu_vector_db_torch/csrc/ivf_topk.cu"}
+          "ivf_kernel": "tpu_vector_db_torch/csrc/ivf_topk.cu",
+          "merge_small_k": "tpu_vector_db_torch/csrc/topk_common.cuh"}
+# merge_small_k alone is the sharded paths' k·P merge, where the JAX
+# package merges with lax.top_k (XLA, not a Pallas kernel)
 REPLACES = {"scan_kernel": "tpu_vector_db/ops/pallas_scan.py:112",
             "scan_kernel_bigk": "tpu_vector_db/ops/pallas_scan.py:259",
-            "ivf_kernel": "tpu_vector_db/ops/ivf_scan.py:40"}
+            "ivf_kernel": "tpu_vector_db/ops/ivf_scan.py:40",
+            "merge_small_k": "tpu_vector_db/parallel/sharded_scan.py:86"}
 # the path whose launch counts stand in the kernels line, and the case its
 # timings come from: the shape that path gives the kernel (flat top-10 at
 # batch 64 and top-100 at batch 1 on the main path; an IVF top-10 query at
 # batch 1 on the ivf path's own index, timed there)
 HEADLINE_PATH = {"scan_kernel": "main", "scan_kernel_bigk": "main",
-                 "ivf_kernel": "ivf"}
+                 "ivf_kernel": "ivf", "merge_small_k": "sharded"}
 HEADLINE = {"scan_kernel": ("float32", 64, 10),
             "scan_kernel_bigk": ("float32", 1, 100)}
 LIBRARIES = ("flat_topk", "ivf_topk")
@@ -2006,6 +2025,477 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
 
 
 
+# ------------------------------------------------------ the sharded path
+
+# BASELINE config #5 (BASELINE.md:37,45): 10M x 128 f32 cosine, sharded;
+# rows N(0, I) with metadata {"g": i % 100}, added in 10 x 1M batches
+SHARD_N, SHARD_D, SHARD_BATCH = 10_000_000, 128, 1_000_000
+SHARD_QUERIES, SHARD_REPS = 64, 50
+SHARD_DELETED = SHARD_N // 1000               # 0.1% tombstoned
+SHARD_P = 4                                   # the reopen's co-located mesh
+# sharded IVF (the ivf path's regime) and sharded graph (the graph path's)
+SHARD_IVF_N, SHARD_IVF_PARTS, SHARD_IVF_P = 2_000_000, 4, 2
+SHARD_GRAPH_N, SHARD_GRAPH_EXTRA, SHARD_GRAPH_P = 100_000, 10_000, 2
+SHARD_MGR_N = 100_000
+SHARD_TOL = 1e-6               # ids equal, keys within: same kernel rules
+
+
+def same_answers(got: list, want: list, tol: float = SHARD_TOL) -> bool:
+    """batch_query results equal: ids, and scores within ``tol``."""
+    return len(got) == len(want) and all(
+        g[0] == w[0] and np.allclose(g[1], w[1], atol=tol, rtol=0)
+        for g, w in zip(got, want))
+
+
+def shard_launches(fn) -> dict:
+    """Run fn; the launches it made of each kernel."""
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    before = dict(LAUNCHES)
+    fn()
+    return {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+
+
+def hold_sharded(store, path: str, queries: np.ndarray, k: int, errs: dict,
+                 filter_metadata: dict | None = None) -> None:
+    """Each shard's flat kernel against its plain version on that shard's
+    own inputs (rows, mask, scales, local count; k > 32: the line gives
+    the most key-scratch chunks a shard's call is cut into), then the k·P
+    merge of the kernels' candidates against its plain version, bit for
+    bit (k <= 32: merge_small_k; k > 32 the sort merge, plain torch)."""
+    import torch
+    from tpu_vector_db_torch.ops import cuda_scan, ivf_scan
+    from tpu_vector_db_torch.parallel.mesh import local_count
+    from tpu_vector_db_torch.parallel.sharded_scan import (
+        gather_candidates, merge_candidates)
+    args = store._scan_inputs(queries, store._query_mask(filter_metadata))
+    rows, n = store._rows_per_shard, store._n_dev
+    name = cuda_scan.kernel_name(k)
+    keys_l, ids_l, err, ok, chunks = [], [], 0.0, True, 0
+    for s in range(n):
+        kw = dict(queries=args["queries"], db=args["db"][s],
+                  count=local_count(store._count, rows, s),
+                  metric=store.metric, k=k)
+        plan = cuda_scan._launch_plan(len(queries), kw["db"].dtype,
+                                      kw["queries"].shape[1], k, kw["count"])
+        if plan.chunk_rows:
+            chunks = max(chunks, -(-kw["count"] // plan.chunk_rows))
+        for key in ("db_sqnorms", "filter_mask", "db_scales"):
+            kw[key] = args[key][s] if args[key] is not None else None
+        keys, ids = cuda_scan.flat_topk(**kw)
+        pkeys, pids = cuda_scan.flat_topk_plain(**kw)
+        e, keys_ok, ids_ok = compare(keys, ids, pkeys, pids, store.metric)
+        err, ok = max(err, e), ok and keys_ok and ids_ok
+        keys_l.append(keys)
+        ids_l.append(ids)
+    cand = gather_candidates(keys_l, ids_l, [s * rows for s in range(n)],
+                             store.mesh.lead)
+    merged = merge_candidates(*cand, k, empty_id=0)
+    if k <= 32:
+        want = ivf_scan.merge_small_k_plain(*cand, k, 0)
+        merge_ok = (torch.equal(merged[0].view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(merged[1], want[1]))
+    else:
+        merge_ok = True   # plain torch: no kernel to hold
+    emit({"phase": "hold", "path": path, "kernel": name, "shards": n,
+          "dtype": store.config.storage_dtype, "metric": store.metric,
+          "filtered": bool(filter_metadata), "Q": len(queries), "k": k,
+          "count": store._count, "d": store.config.dimension,
+          "chunks_per_shard": chunks, "max_abs_err": err, "shards_ok": ok,
+          "merge_bit_equal": merge_ok})
+    check(ok, f"{path}: {name} disagrees with its plain version on a shard "
+          f"at Q={len(queries)} k={k} (key error {err})")
+    check(merge_ok, f"{path}: the k·P merge disagrees with its plain "
+          "version")
+    if k <= 32:
+        errs.setdefault("merge_small_k", 0.0)   # bit for bit
+    errs[name] = max(errs.get(name, 0.0), err)
+
+
+def hold_sharded_ivf(store, path: str, queries: np.ndarray, k: int,
+                     errs: dict, timed: bool = False) -> dict:
+    """The IVF kernel against its plain version on every shard's buckets,
+    ids and fills, at the buckets its centroids select for these queries;
+    returns the first shard's line."""
+    from tpu_vector_db_torch.index.ivf import _select_buckets
+    ann = store._ann
+    q = store._prepare_queries(queries)
+    first = None
+    for s, sub in enumerate(ann._subs):
+        if not sub.built:
+            continue
+        dev = sub._dev
+        nprobe = min(store.config.ann_params.get("nprobe", ann.nprobe),
+                     dev["ids"].shape[0])
+        sel = _select_buckets(q, dev["centroids"], dev["bucket_cluster"],
+                              nprobe, store.metric, dev["c_sqnorms"])
+        out = hold_ivf(q, dev["buckets"], dev["ids"], dev["fills"], sel, k,
+                       {"phase": "hold", "path": path, "shard": s},
+                       timed=timed and s == 0)
+        errs["ivf_kernel"] = max(errs.get("ivf_kernel", 0.0),
+                                 out["max_abs_err"])
+        first = first or out
+    return first
+
+
+def merge_headline(store, queries: np.ndarray, k: int) -> dict:
+    """The k·P merge alone at the shape the path gives it (the shards'
+    candidates of a b64 top-10 call at P = 4): kernel and plain times by
+    CUDA events, device time by profiler, torch.topk over the same keys
+    (the library call), and the bound (candidates read once, results
+    written once)."""
+    import torch
+    from tpu_vector_db_torch.ops import cuda_scan, ivf_scan
+    from tpu_vector_db_torch.parallel.mesh import local_count
+    from tpu_vector_db_torch.parallel.sharded_scan import gather_candidates
+    args = store._scan_inputs(queries, None)
+    rows, n = store._rows_per_shard, store._n_dev
+    keys_l, ids_l = [], []
+    for s in range(n):
+        keys, ids = cuda_scan.flat_topk(
+            args["queries"], args["db"][s], local_count(store._count, rows, s),
+            k, store.metric)
+        keys_l.append(keys)
+        ids_l.append(ids)
+    ck, ci = gather_candidates(keys_l, ids_l, [s * rows for s in range(n)],
+                               store.mesh.lead)
+    got = ivf_scan.merge_small_k(ck, ci, k, 0)
+    want = ivf_scan.merge_small_k_plain(ck, ci, k, 0)
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+          and torch.equal(got[1], want[1]),
+          "merge_small_k disagrees with its plain version on the k·P merge")
+    nbytes = ck.numel() * 8 + got[0].numel() * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dev = device_ms(lambda: ivf_scan.merge_small_k(ck, ci, k, 0), 20,
+                    ("merge_small_k",), bound_ms)
+    return {"design": f"k·P merge, {n} lists of {k}",
+            "ms": cuda_ms(lambda: ivf_scan.merge_small_k(ck, ci, k, 0), 50),
+            "device_ms": dev["device_ms"],
+            "plain_ms": cuda_ms(lambda: ivf_scan.merge_small_k_plain(
+                ck, ci, k, 0), 20),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": cuda_ms(lambda: torch.topk(ck, k, dim=1), 50),
+            "library": "torch.topk", "Q": ck.shape[0], "candidates":
+            ck.shape[1], "k": k}
+
+
+def sharded_recall(store, qs: np.ndarray, n: int, k: int = 10,
+                   batch: int = 8) -> float:
+    """Tie-aware recall@k of ANN-routed batches (no flat-scan launch)
+    against the exact top-k of the store's first n rows."""
+    import torch
+    res = []
+    for i in range(0, len(qs), batch):
+        res += graph_routed(lambda: store.batch_query(qs[i:i + batch], k=k))
+    db = torch.cat(store._db)[:n, :store.config.dimension]
+    (gt_vals, _), keys = exact_topk(db, qs, k, "cosine")
+    return tie_aware_recall(res, keys, gt_vals, k)
+
+
+def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
+    """BASELINE config #5: 10M x 128 f32 cosine in a ShardedVectorStore
+    over make_device_mesh() (every visible card: one shard on one card),
+    answering as an unsharded TorchVectorStore on the same rows does;
+    flushed and reopened at P = 4 co-located shards (["cuda:0"] * 4);
+    then a sharded IVF (2M x 128 clustered, P = 2), a sharded beam graph
+    (100K x 128 of the graph regime, P = 2, native build, extended by 10K,
+    flushed and reopened from ann_sharded_graph.npz) and the manager with
+    sharded=True. Returns the k·P merge's headline timings."""
+    import torch
+    from tpu_vector_db_torch import TorchVectorStore, VectorStoreConfig
+    from tpu_vector_db_torch.parallel import (ShardedVectorStore,
+                                              make_device_mesh)
+    from tpu_vector_db_torch.parallel.sharded_ann import ShardedBeamGraph
+    from tpu_vector_db_torch.parallel.sharded_ivf import ShardedIVF
+    from tpu_vector_db_torch.service.error_handler import ErrorHandler
+    from tpu_vector_db_torch.service.manager import VectorStoreManager
+    d, n = SHARD_D, SHARD_N
+    meta = [{"g": i % 100} for i in range(n)]
+    qs = torch.randn((SHARD_QUERIES, d), generator=g,
+                     device="cuda").cpu().numpy()
+    filt = {"g": 7}
+    dead = np.random.default_rng(seed + 9).choice(n, SHARD_DELETED,
+                                                  replace=False)
+    cfg = VectorStoreConfig(dimension=d, persist_mode="lazy")
+    keep = {}
+    with counting("sharded", ("scan_kernel", "scan_kernel_bigk",
+                              "ivf_kernel", "merge_small_k"), counts):
+        # -- 10M x 128 at P = 1 beside an unsharded store
+        mesh = make_device_mesh()
+        check(mesh.size == torch.cuda.device_count(),
+              "make_device_mesh() is not every visible card")
+        store = ShardedVectorStore(tmp / "sharded", cfg, mesh=mesh)
+        flat = TorchVectorStore(
+            tmp / "sharded_flat", VectorStoreConfig(
+                dimension=d, persist_mode="off"), device="cuda")
+        add_s = flat_s = 0.0
+        for start in range(0, n, SHARD_BATCH):
+            rows = torch.randn((SHARD_BATCH, d), generator=g,
+                               device="cuda").cpu().numpy()
+            part = meta[start:start + SHARD_BATCH]
+            t0 = time.perf_counter()
+            store.add_vectors(rows, part)
+            add_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            flat.add_vectors(rows, part)
+            flat_s += time.perf_counter() - t0
+        del rows
+        st = store.get_stats()
+        check(st["vector_count"] == n and st["sharded"]
+              and st["n_devices"] == mesh.size, f"sharded stats {st}")
+        emit({"phase": "sharded", "case": f"add {n}x{d} f32 in "
+              f"{n // SHARD_BATCH} batches", "P": mesh.size,
+              "seconds": add_s, "unsharded_seconds": flat_s,
+              "rows_per_shard": st["rows_per_shard"],
+              "device_capacity": st["device_capacity"],
+              "devices": [str(x) for x in mesh.devices]})
+        answers = {}
+        for label, q_n, k, kw in (("top-10 b1", 1, 10, {}),
+                                  ("top-10 b64", 64, 10, {}),
+                                  ("top-100 b1", 1, 100, {}),
+                                  ("top-100 b64", 64, 100, {}),
+                                  ("1% filter top-10 b1", 1, 10,
+                                   {"filter_metadata": filt}),
+                                  ("1% filter top-10 b64", 64, 10,
+                                   {"filter_metadata": filt})):
+            reps = SHARD_REPS if q_n == 1 and not kw else 10
+            r = timed_queries(store, qs[:q_n], k, reps, **kw)
+            got = store.batch_query(qs[:q_n], k=k, **kw)
+            want = flat.batch_query(qs[:q_n], k=k, **kw)
+            check(same_answers(got, want), f"sharded {label} differs from "
+                  "the unsharded store")
+            if kw:
+                check(all(m == filt for res in got for m in res[2]),
+                      "a filtered answer breaks the filter")
+            answers[label] = got
+            emit({"phase": "sharded", "case": f"P=1 {label}", **r,
+                  "flat_p50_ms": timed_queries(
+                      flat, qs[:q_n], k, reps, **kw)["p50_ms"],
+                  "equal_to_unsharded": True})
+        for q_n in (1, 64):
+            r = device_share(store, qs[:q_n], 10, 20, expect_flat(10))
+            emit({"phase": "sharded", "case": f"P=1 top-10 b{q_n} "
+                  "profiled", **r})
+        (gt_vals, _), keys = exact_topk(store._db[0][:n], qs, 10, "cosine")
+        recall = tie_aware_recall(answers["top-10 b64"], keys, gt_vals, 10)
+        del keys, gt_vals
+        emit({"phase": "sharded", "case": "recall@10 64q", "recall": recall})
+        check(recall == 1.0, f"sharded flat recall@10 = {recall}")
+        store.delete_vectors(dead)
+        flat.delete_vectors(dead)
+        for label, q_n, k in (("0.1% deleted top-10 b64", 64, 10),
+                              ("0.1% deleted top-100 b1", 1, 100)):
+            got = store.batch_query(qs[:q_n], k=k)
+            check(same_answers(got, flat.batch_query(qs[:q_n], k=k)),
+                  f"sharded {label} differs from the unsharded store")
+            check(not set(dead.tolist()) & {i for r in got for i in r[0]},
+                  "a deleted id was returned")
+            answers[label] = got
+        emit({"phase": "sharded", "case": "delete 0.1%", "deleted":
+              SHARD_DELETED, "equal_to_unsharded": True})
+        keep["flat"] = flat
+        del flat
+        # -- flush, reopen the same files at P = 4 on one card
+        t0 = time.perf_counter()
+        store.flush()
+        flush_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh4 = make_device_mesh(devices=["cuda:0"] * SHARD_P)
+        reopened = ShardedVectorStore(tmp / "sharded", mesh=mesh4)
+        reopen_s = time.perf_counter() - t0
+        st4 = reopened.get_stats()
+        rows4 = st4["rows_per_shard"]
+        local = [max(0, min(n - s * rows4, rows4)) for s in range(SHARD_P)]
+        emit({"phase": "sharded", "case": f"flush + reopen at P={SHARD_P} "
+              "on cuda:0", "flush_seconds": flush_s,
+              "reopen_seconds": reopen_s, "rows_per_shard": rows4,
+              "live_rows_by_shard": local,
+              "deleted": st4["deleted_count"]})
+        check(st4["n_devices"] == SHARD_P and st4["vector_count"]
+              == n - SHARD_DELETED, f"reopened stats {st4}")
+        for label, q_n, k in (("0.1% deleted top-10 b64", 64, 10),
+                              ("0.1% deleted top-100 b1", 1, 100)):
+            got = reopened.batch_query(qs[:q_n], k=k)
+            check(same_answers(got, answers[label]),
+                  f"P={SHARD_P} {label} differs from P=1")
+        for q_n, k in ((1, 10), (64, 10), (1, 100)):
+            made = shard_launches(
+                lambda: reopened.batch_query(qs[:q_n], k=k))
+            scan = "scan_kernel" if k <= 32 else "scan_kernel_bigk"
+            check(made[scan] == SHARD_P and made["merge_small_k"] ==
+                  (1 if k <= 32 else 0), f"P={SHARD_P} b{q_n} k{k} "
+                  f"launched {made}")
+            r = timed_queries(reopened, qs[:q_n], k,
+                              SHARD_REPS if q_n == 1 else 10)
+            emit({"phase": "sharded", "case": f"P={SHARD_P} top-{k} "
+                  f"b{q_n}", **r, "launches_per_call": made,
+                  "equal_to_p1": True})
+        for q_n in (1, 64):
+            r = device_share(reopened, qs[:q_n], 10, 20, expect_flat(10))
+            emit({"phase": "sharded", "case": f"P={SHARD_P} top-10 "
+                  f"b{q_n} profiled", **r})
+        keep["store"], keep["reopened"] = store, reopened
+        del store, reopened
+
+        # -- sharded IVF: 2M x 128 clustered at P = 2 on the card
+        centres = torch.randn((IVF_CENTERS, d), generator=g, device="cuda")
+        iqs = clustered_rows(g, centres, 64).cpu().numpy()
+        ivf = ShardedVectorStore(
+            tmp / "sharded_ivf", VectorStoreConfig(
+                dimension=d, persist_mode="off", enable_ann=True,
+                initial_capacity=SHARD_IVF_N,
+                ann_params={"index_type": "ivf"}),
+            mesh=make_device_mesh(devices=["cuda:0"] * SHARD_IVF_P))
+        part = SHARD_IVF_N // SHARD_IVF_PARTS
+        ivf_add = []
+        for _ in range(SHARD_IVF_PARTS):
+            rows = clustered_rows(g, centres, part).cpu().numpy()
+            t0 = time.perf_counter()
+            ivf.add_vectors(rows)
+            ivf_add.append(time.perf_counter() - t0)
+        ann = ivf._ann
+        check(isinstance(ann, ShardedIVF) and ann.size == SHARD_IVF_N,
+              "the sharded IVF does not cover the added rows")
+        ist = ann.get_stats()
+        emit({"phase": "sharded", "case": f"IVF add {SHARD_IVF_N}x{d} in "
+              f"{SHARD_IVF_PARTS} batches, P={SHARD_IVF_P}",
+              "add_seconds": ivf_add, **ist})
+        for nprobe in (32, 64):
+            ivf.config.ann_params["nprobe"] = nprobe
+            made = shard_launches(lambda: graph_routed(
+                lambda: ivf.batch_query(iqs[:8], k=10)))
+            check(made["ivf_kernel"] == SHARD_IVF_P
+                  and made["merge_small_k"] == 1, f"an IVF call launched "
+                  f"{made}")
+            recall = sharded_recall(ivf, iqs, SHARD_IVF_N)
+            r = counted(lambda: timed_queries(ivf, iqs[:1], 10, 20),
+                        "ivf_kernel", FLAT_SCANS)
+            emit({"phase": "sharded", "case": f"IVF nprobe {nprobe}",
+                  "recall": recall, "launches_per_call": made, **r})
+            check(recall >= 0.95, f"sharded IVF recall@10 = {recall} at "
+                  f"nprobe {nprobe}")
+        ivf.config.ann_params["nprobe"] = 32
+        prepared = ivf._prepare_queries(iqs[:8])
+        keys, ids = counted(lambda: ann.search(prepared, 10,
+                                               nprobe=ann.n_buckets),
+                            "ivf_kernel", FLAT_SCANS)
+        fkeys, fids = ivf._exact_topk(k=10, **ivf._scan_inputs(iqs[:8],
+                                                               None))
+        err, keys_ok, ids_ok = compare(keys, ids, fkeys, fids, "cosine")
+        emit({"phase": "sharded", "case": "IVF full probe vs flat top-10 "
+              "8q", "nprobe": ann.n_buckets, "max_abs_err": err,
+              "keys_ok": keys_ok, "ids_ok": ids_ok})
+        check(keys_ok and ids_ok, "a full sharded IVF probe differs from "
+              f"the sharded flat scan (key error {err})")
+        keep["ivf"] = ivf
+        del ivf, ann
+
+        # -- sharded beam graph: 100K x 128 of the graph regime at P = 2
+        gcentres = torch.randn((GRAPH_CENTRES, d), generator=g,
+                               device="cuda")
+        gqs = spread_rows(g, gcentres, GRAPH_QUERIES).cpu().numpy()
+        gcfg = VectorStoreConfig(dimension=d, persist_mode="lazy",
+                                 enable_ann=True,
+                                 ann_params={"index_type": "beam_graph"})
+        gmesh = make_device_mesh(devices=["cuda:0"] * SHARD_GRAPH_P)
+        graph = ShardedVectorStore(tmp / "sharded_graph", gcfg, mesh=gmesh)
+        rows = spread_rows(g, gcentres, SHARD_GRAPH_N).cpu().numpy()
+        t0 = time.perf_counter()
+        graph.add_vectors(rows)
+        build_s = time.perf_counter() - t0
+        check(isinstance(graph._ann, ShardedBeamGraph)
+              and graph._ann.size == SHARD_GRAPH_N,
+              "the sharded graph was not built (degraded to the flat scan)")
+        extra = spread_rows(g, gcentres, SHARD_GRAPH_EXTRA).cpu().numpy()
+        builds = []
+        with recording(ShardedBeamGraph, "build", builds):
+            t0 = time.perf_counter()
+            graph.add_vectors(extra)
+            extend_s = time.perf_counter() - t0
+        total = SHARD_GRAPH_N + SHARD_GRAPH_EXTRA
+        check(not builds and graph._ann.size == total,
+              "the 10K add rebuilt the sharded graph")
+        own = [graph_routed(lambda: graph.query(extra[i], k=1))[0][0]
+               for i in range(0, SHARD_GRAPH_EXTRA, 100)]
+        found = sum(int(i == SHARD_GRAPH_N + j * 100)
+                    for j, i in enumerate(own))
+        recall = sharded_recall(graph, gqs, total, batch=64)
+        made = shard_launches(lambda: graph_routed(
+            lambda: graph.batch_query(gqs[:64], k=10)))
+        r = {f"p50_ms_b{q_n}": graph_routed(lambda: timed_queries(
+            graph, gqs[:q_n], 10, 10))["p50_ms"] for q_n in (1, 64)}
+        emit({"phase": "sharded", "case": f"graph {SHARD_GRAPH_N}x{d} "
+              f"P={SHARD_GRAPH_P}, +{SHARD_GRAPH_EXTRA}",
+              "build_seconds": build_s, "extend_seconds": extend_s,
+              "extended_rows_found_first": found, "of": len(own),
+              "recall_ef100": recall, "launches_per_call": made, **r,
+              **graph._ann.get_stats()})
+        check(recall >= 0.95, f"sharded graph recall@10 = {recall}")
+        check(made["merge_small_k"] == 1, f"a graph call launched {made}")
+        before = graph.batch_query(gqs[:64], k=10)
+        graph.flush()
+        builds = []
+        with recording(ShardedBeamGraph, "build", builds):
+            t0 = time.perf_counter()
+            greopen = ShardedVectorStore(tmp / "sharded_graph", mesh=gmesh)
+            reopen_s = time.perf_counter() - t0
+        served = (not builds and isinstance(greopen._ann, ShardedBeamGraph)
+                  and greopen._ann.size == total
+                  and greopen._ann.build_time_s == 0.0)
+        check(served, "the reopened sharded store rebuilt its graph instead "
+              "of serving ann_sharded_graph.npz")
+        after = graph_routed(lambda: greopen.batch_query(gqs[:64], k=10))
+        check([a[0] for a in after] == [b[0] for b in before],
+              "the reopened sharded graph answers differently")
+        emit({"phase": "sharded", "case": "graph flush + reopen",
+              "reopen_seconds": reopen_s, "graph_served": served,
+              "same_answers": True})
+        keep["graph"] = greopen
+        del graph, greopen
+
+        # -- the manager with sharded=True
+        manager = VectorStoreManager(base_path=tmp / "sharded_mgr",
+                                     sharded=True, device="cuda",
+                                     errors=ErrorHandler(tmp / "mgr_logs"))
+        mstore = manager.create_store("smoke", "sharded",
+                                      VectorStoreConfig(dimension=d))
+        mrows = torch.randn((SHARD_MGR_N, d), generator=g,
+                            device="cuda").cpu().numpy()
+        mstore.add_vectors(mrows)
+        mflat = TorchVectorStore(tmp / "sharded_mgr_flat", VectorStoreConfig(
+            dimension=d, persist_mode="off"), device="cuda")
+        mflat.add_vectors(mrows)
+        got = [mstore.query(q, k=10) for q in qs[:10]]
+        check(isinstance(mstore, ShardedVectorStore)
+              and same_answers(got, [mflat.query(q, k=10)
+                                     for q in qs[:10]]),
+              "the sharded manager's store answers differently")
+        emit({"phase": "sharded", "case": f"manager sharded=True "
+              f"{SHARD_MGR_N}x{d}", "store": type(mstore).__name__,
+              "n_devices": mstore.get_stats()["n_devices"],
+              "equal_to_unsharded": True})
+        manager.shutdown()
+        keep["mgr"], keep["mgr_flat"] = mstore, mflat
+        del mstore, mflat
+    headline = merge_headline(keep["reopened"], qs, 10)
+    # every shape the path's flat calls gave the kernels: b1 and b64,
+    # top-10 and top-100 (b64 top-100 over 10M rows is the multi-chunk
+    # plan, its chunks' lists merged), at P = 1 and at P = 4
+    for q_n, k in ((1, 10), (64, 10), (1, 100), (64, 100)):
+        hold_sharded(keep["store"], "sharded", qs[:q_n], k, errs)
+        hold_sharded(keep["reopened"], "sharded", qs[:q_n], k, errs)
+    hold_store(keep["flat"], "sharded", qs, 10, errs, filt)
+    hold_sharded(keep["reopened"], "sharded", qs, 10, errs, filt)
+    hold_sharded_ivf(keep["ivf"], "sharded", iqs[:8], 10, errs)
+    hold_sharded(keep["ivf"], "sharded", iqs[:8], 10, errs)
+    hold_sharded(keep["graph"], "sharded", gqs[:64], 10, errs)
+    hold_sharded(keep["mgr"], "sharded", qs[:10], 10, errs)
+    hold_store(keep["mgr_flat"], "sharded", qs[:10], 10, errs)
+    keep.clear()
+    free_card()
+    return headline
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2045,13 +2535,15 @@ def main() -> int:
         path_graph(g, args.seed, tmp, counts, errs)
         path_graph_native(g, tmp, counts, errs)
         path_serve(g, args.seed, tmp, counts, errs)
+        headline["merge_small_k"] = path_sharded(g, args.seed, tmp, counts,
+                                                 errs)
         kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name],
                     "launches": counts[HEADLINE_PATH[name]][name],
                     "launches_path": HEADLINE_PATH[name],
                     "max_abs_err": errs[name], **headline[name]}
                    for name in ("scan_kernel", "scan_kernel_bigk",
-                                "ivf_kernel")]
+                                "ivf_kernel", "merge_small_k")]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"kernels": kernels})

@@ -265,15 +265,35 @@ class TestManager:
         assert warmed["a/m1"]["warmed"]
         mgr.shutdown()
 
-    def test_sharded_and_multihost_not_ported(self, tmp_path, monkeypatch):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            manager(tmp_path, sharded=True)
-        monkeypatch.setenv("VECTOR_DB_SHARDED", "1")
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            manager(tmp_path)
+    def test_sharded_and_multihost_not_ported(self, tmp_path, monkeypatch,
+                                              rng):
+        """Sharded stores are ported: sharded=True and VECTOR_DB_SHARDED=1
+        make ShardedVectorStores that answer as an unsharded store does.
+        Multi-host serving is not: VECTOR_DB_COORDINATOR still raises."""
+        from tpu_vector_db_torch.parallel import ShardedVectorStore
+        x = rng.standard_normal((300, 16)).astype(np.float32)
+        q = rng.standard_normal((5, 16)).astype(np.float32)
+        plain = manager(tmp_path / "plain")
+        want = plain.create_store("u", "m", VectorStoreConfig(dimension=16))
+        want.add_vectors(x)
+        for sub, kw in (("arg", {"sharded": True}), ("env", {})):
+            if not kw:
+                monkeypatch.setenv("VECTOR_DB_SHARDED", "1")
+            mgr = manager(tmp_path / sub, **kw)
+            store = mgr.create_store("u", "m",
+                                     VectorStoreConfig(dimension=16))
+            assert isinstance(store, ShardedVectorStore)
+            assert store.get_stats()["sharded"]
+            store.add_vectors(x)
+            for got, exp in zip(store.batch_query(q, k=7),
+                                want.batch_query(q, k=7)):
+                assert got[0] == exp[0]
+                np.testing.assert_allclose(got[1], exp[1], atol=1e-6)
+            mgr.shutdown()
+        plain.shutdown()
         monkeypatch.delenv("VECTOR_DB_SHARDED")
         monkeypatch.setenv("VECTOR_DB_COORDINATOR", "localhost:1234")
-        with pytest.raises(NotImplementedError, match="parallel/"):
+        with pytest.raises(NotImplementedError, match="VECTOR_DB_COORDINATOR"):
             manager(tmp_path)
 
     def test_cuda_store_raises_without_card(self, tmp_path, monkeypatch):

@@ -139,8 +139,8 @@ async def error_middleware(request: web.Request, handler):
              "timestamp": time.time()},
             status=404)
     except NotImplementedError as exc:
-        # a feature of the JAX server this port lacks yet (sharded stores,
-        # multi-host serving: parallel/ is not ported)
+        # a feature of the JAX server this port lacks yet (multi-host
+        # serving: parallel/'s multi-host bootstrap is not ported)
         return web.json_response(
             {"error": str(exc), "code": 501, "timestamp": time.time()},
             status=501)

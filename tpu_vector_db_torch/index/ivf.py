@@ -22,8 +22,7 @@ package opens in the other:
     ValueError (the store sends k > 32 to the exact big-k scan);
   - ``"gather"``: int8/int4 stores (and bf16 with ``layout="gather"``)
     keep no row copy; probes gather rows from the store's flat matrix.
-  Keys and ids come back in ONE device-to-host copy (keys viewed as int32
-  beside the ids).
+  Keys and ids come back in ONE device-to-host copy (``ops/topk.to_host``).
 * ADD assigns new rows to the nearest existing centroid and fills bucket
   free slots, spilling into new buckets; the device copy is updated in
   place (``index_copy_``) unless the bucket count grew.
@@ -43,7 +42,7 @@ from tpu_vector_db_torch.ops.ivf_scan import (MAX_IVF_KERNEL_K,
                                               ivf_probe_topk,
                                               ivf_probe_topk_gather,
                                               ivf_probe_topk_plain)
-from tpu_vector_db_torch.ops.topk import NEG_INF, top_k
+from tpu_vector_db_torch.ops.topk import NEG_INF, to_host, top_k
 from tpu_vector_db_torch.utils.fs import atomic_save_npz
 
 logger = logging.getLogger(__name__)
@@ -86,16 +85,6 @@ def _select_and_probe(q, dev: dict, db, scales, nprobe: int, metric: str,
     return ivf_probe_topk_plain(q, dev["buckets"], dev["ids"], sel, k,
                                 metric=metric,
                                 bucket_sqnorms=dev.get("sqnorms"))
-
-
-def _select_probe_packed(q, dev: dict, db, scales, nprobe: int, metric: str,
-                         k: int, layout: str) -> np.ndarray:
-    """``_select_and_probe`` and ONE device-to-host copy: keys viewed as
-    int32 beside the ids, (Q, 2k) int32 on the host."""
-    keys, idx = _select_and_probe(q, dev, db, scales, nprobe, metric, k,
-                                  layout)
-    return torch.cat([keys.float().view(torch.int32),
-                      idx.to(torch.int32)], dim=-1).cpu().numpy()
 
 
 def _scatter_rows(buckets, flat_pos, rows):
@@ -428,11 +417,9 @@ class IVFIndex:
             layout = "kernel"
         else:                             # a CPU tensor (checked above)
             layout = "plain"
-        packed = _select_probe_packed(q, dev, db if layout == "gather"
-                                      else None, scales, p, self.metric, k,
-                                      layout)
-        keys = np.ascontiguousarray(packed[:, :k]).view(np.float32)
-        ids = packed[:, k:]
+        keys, ids = to_host(*_select_and_probe(
+            q, dev, db if layout == "gather" else None, scales, p,
+            self.metric, k, layout))
         ids = np.where(keys == NEG_INF, -1, ids)
         return ids, keys
 

@@ -18,8 +18,10 @@ its centroid scores chose.
   flat int8/int4/bf16 matrix, with no bucketized copy.
 * ``merge_small_k`` runs the k <= 32 merge of both scans' candidate lists
   (``merge_small_k`` in ``csrc/topk_common.cuh``, the second launch of
-  ``ivf_kernel`` and of the flat ``scan_kernel``) alone, for the tests and
-  chip_smoke.py; ``merge_small_k_plain`` is its plain version.
+  ``ivf_kernel`` and of the flat ``scan_kernel``) alone: the sharded
+  paths' k·P merge (``parallel/sharded_scan.py``). Each launch adds one to
+  ``LAUNCHES["merge_small_k"]``. ``merge_small_k_plain`` is its plain
+  version.
 
 Keys are in the maximize convention of ops/distance.py. Order is key
 descending, then global row id ascending, so a full probe returns what the
@@ -277,11 +279,9 @@ def merge_small_k_plain(keys, ids, k: int, empty_id: int = -1):
 
 def merge_small_k(keys, ids, k: int, empty_id: int = -1):
     """The k <= 32 merge alone: the CUDA kernel on a CUDA tensor,
-    ``merge_small_k_plain`` on a CPU tensor. It is a stage of
-    ``ivf_kernel`` and ``scan_kernel``, whose wrappers count their
-    launches, so it records none itself.
-    Candidate ids must be distinct within a query, as the scans write
-    them."""
+    ``merge_small_k_plain`` on a CPU tensor. Candidate ids must be
+    distinct within a query among the finite keys (-inf candidates are
+    never read), as the scans write them."""
     if not 1 <= k <= MERGE_SMALL_MAX_K:
         raise ValueError(f"merge_small_k takes 1 <= k <= "
                          f"{MERGE_SMALL_MAX_K}, got {k}")
@@ -312,4 +312,5 @@ def merge_small_k(keys, ids, k: int, empty_id: int = -1):
             out_ids.data_ptr(), empty_id, stream)
     if err != 0:
         raise RuntimeError(f"merge_small_k kernel failed: CUDA error {err}")
+    record("merge_small_k")
     return out_keys, out_ids

@@ -8,6 +8,7 @@ no stated order, so these sort stably instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -49,3 +50,12 @@ def topk_with_mask(scores: torch.Tensor, mask: torch.Tensor | None, k: int):
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     return top_k(scores, k)
+
+
+def to_host(keys: torch.Tensor, ids: torch.Tensor):
+    """(Q, k) keys and ids on the host in ONE device-to-host copy, the
+    keys viewed as int32 beside the ids: (keys f32, ids i32) numpy."""
+    k = keys.shape[-1]
+    packed = torch.cat([keys.float().view(torch.int32),
+                        ids.to(torch.int32)], dim=-1).cpu().numpy()
+    return np.ascontiguousarray(packed[:, :k]).view(np.float32), packed[:, k:]

@@ -10,9 +10,11 @@ One class, wired to the error handler and circuit breakers for real.
 The port of ``tpu_vector_db.service.manager``: stores are
 ``TorchVectorStore`` on ``device`` ("cuda" unless the caller passes
 "cpu"). The device is resolved when the first store is made, so making
-a manager (and importing this module) touches no CUDA. Sharded stores and
-multi-host serving wait for ``parallel/`` to be ported and raise
-``NotImplementedError``.
+a manager (and importing this module) touches no CUDA. ``sharded=True``
+(or ``VECTOR_DB_SHARDED=1``) makes ``parallel.ShardedVectorStore``s over
+``make_device_mesh()``: every visible card for "cuda", one CPU shard for
+"cpu". Multi-host serving (``VECTOR_DB_COORDINATOR``) is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 from tpu_vector_db_torch.service.error_handler import (
     ErrorHandler, get_error_handler)
@@ -52,14 +56,12 @@ class VectorStoreManager:
             max_workers = int(os.environ.get("VDB_WORKERS", "4"))
         if sharded is None:
             sharded = os.environ.get("VECTOR_DB_SHARDED", "0") == "1"
-        if sharded:
-            raise NotImplementedError(
-                "sharded stores need parallel/, which is not ported to "
-                "torch yet")
         if os.environ.get("VECTOR_DB_COORDINATOR"):
             raise NotImplementedError(
-                "multi-host serving needs parallel/, which is not ported "
-                "to torch yet")
+                "multi-host serving (VECTOR_DB_COORDINATOR) is not ported "
+                "to torch yet; it needs the multi-host bootstrap of "
+                "parallel/")
+        self._sharded = sharded
         self.base_path = Path(base_path)
         self.device = device
         self._stores: dict[tuple[str, str], TorchVectorStore] = {}
@@ -130,6 +132,13 @@ class VectorStoreManager:
         return path
 
     def _make_store(self, path: Path, config: VectorStoreConfig | None):
+        if self._sharded:
+            from tpu_vector_db_torch.parallel import (ShardedVectorStore,
+                                                      make_device_mesh)
+            mesh = make_device_mesh(
+                devices=["cpu"] if torch.device(self.device).type == "cpu"
+                else None)
+            return ShardedVectorStore(path, config, mesh=mesh)
         return TorchVectorStore(path, config, device=self.device)
 
     def store_exists(self, user_id: str, model_id: str) -> bool:

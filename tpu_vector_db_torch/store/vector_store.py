@@ -55,7 +55,7 @@ from tpu_vector_db_torch.index.ivf import IVFIndex
 from tpu_vector_db_torch.ops.cuda_scan import flat_topk
 from tpu_vector_db_torch.ops.monitor import performance_monitor
 from tpu_vector_db_torch.ops.quant4 import quantize_unit_rows
-from tpu_vector_db_torch.ops.topk import NEG_INF
+from tpu_vector_db_torch.ops.topk import NEG_INF, to_host
 from tpu_vector_db_torch.store import persistence
 from tpu_vector_db_torch.store.config import VectorStoreConfig
 from tpu_vector_db_torch.utils.concurrency import RWLock
@@ -131,6 +131,9 @@ class MetadataColumnIndex:
         start = self._count
         self._count += len(metadata)
         self._grow(self._count)
+        # hashes of this call's str/int/bool values, each hashed once
+        # (floats are not kept: -0.0 == 0.0 but their hashes differ)
+        seen: dict = {}
         for i, meta in enumerate(metadata):
             for key, value in meta.items():
                 col = self._ensure(key)
@@ -138,7 +141,13 @@ class MetadataColumnIndex:
                     new = np.full(self._cap, _MISSING, np.uint64)
                     new[: len(col)] = col
                     self._columns[key] = col = new
-                col[start + i] = _meta_hash(value)
+                if type(value) in (str, int, bool):
+                    h = seen.get((type(value), value))
+                    if h is None:
+                        h = seen[(type(value), value)] = _meta_hash(value)
+                else:
+                    h = _meta_hash(value)
+                col[start + i] = h
 
     def rebuild(self, metadata: list[dict]) -> None:
         self._columns.clear()
@@ -305,6 +314,11 @@ class TorchVectorStore:
         if self._count:
             self._write_rows(self._host_buf[: self._count], 0)
 
+    def _check_device_budget(self, capacity: int) -> None:
+        """Raise StoreCapacityError if ``capacity`` rows do not fit on
+        the store's device."""
+        self.config.check_device_budget(capacity, device=self.device)
+
     def _ensure_host_cap(self, n: int) -> None:
         if self._host_buf is None or self._host_cap < n:
             new_cap = self._capacity_for(n)
@@ -331,8 +345,7 @@ class TorchVectorStore:
             grow = self._db is None or new_count > self._cap
             if grow:
                 # fail BEFORE mutating host state
-                self.config.check_device_budget(
-                    self._capacity_for(new_count), device=self.device)
+                self._check_device_budget(self._capacity_for(new_count))
             self._ensure_host_cap(new_count)
             self._host_buf[self._count: new_count] = arr
             self._metadata.extend(metadata)
@@ -522,16 +535,21 @@ class TorchVectorStore:
                     db_sqnorms=self._sqnorms, filter_mask=filter_mask,
                     db_scales=self._scales)
 
+    def _exact_topk(self, **scan_inputs):
+        """Device (keys, ids) of the exact scan over ``_scan_inputs``:
+        one ``flat_topk`` call."""
+        return flat_topk(**scan_inputs)
+
     def _flat_topk(self, queries: np.ndarray, k: int,
                    filter_mask: torch.Tensor | None):
         """One scan launch and ONE device-to-host copy: keys viewed as
         int32 beside the ids. Returns host (keys f32, ids i32)."""
-        keys, idx = flat_topk(k=k, **self._scan_inputs(queries, filter_mask))
-        packed = torch.cat([keys.view(torch.int32), idx], dim=1).cpu().numpy()
-        keys = np.ascontiguousarray(packed[:, :k]).view(np.float32)
+        keys, idx = self._exact_topk(
+            k=k, **self._scan_inputs(queries, filter_mask))
+        keys, idx = to_host(keys, idx)
         if self.config.storage_dtype == "int8":
             keys = keys * (1.0 / 127.0)  # undo the fixed quantizer scale
-        return keys, packed[:, k:]
+        return keys, idx
 
     def _format_results(self, keys_row: np.ndarray, idx_row: np.ndarray,
                         k: int, filter_metadata: dict | None = None):
