@@ -33,7 +33,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed, on the candidate shapes of the IVF and flat batch-1 paths (the
    "merge" lines);
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
-   eight paths, the server on a ninth and the sharded store on a tenth,
+   eight paths, the server on a ninth, the sharded store on a tenth and
+   the embedding pipeline on an eleventh,
    each with the launch counts set to 0 just before it and read just
    after: the main path, 1M x 768
    f32 cosine with metadata (batch 1 and 64, top-100, top-2000, filter,
@@ -62,8 +63,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    (compiled by g++ at first use) builds the graph, the card searches
    it; and ``serve``, the REST
    server (``tpu_vector_db_torch.api.app.create_app`` on the card, on
-   127.0.0.1 at a free port, spoken to over TCP with aiohttp): a 1M x
-   768 f32 cosine store made by ``/admin/create_store`` and filled by 8
+   127.0.0.1 at a free port, spoken to over TCP with aiohttp): a 500K x
+   768 f32 cosine store made by ``/admin/create_store`` and filled by 4
    ``/v1/batch/upload`` calls of 125K rows (followed on their SSE
    streams), 50 sequential ``/vectors/query`` requests, 256 concurrent
    ones (64 in flight) that the query coalescer folds into batched scans
@@ -87,7 +88,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    x 128 of the graph regime, P = 2, native build, a 10K extend, recall@10
    at ef 100, flush + reopen from ``ann_sharded_graph.npz``) and the
    manager with ``sharded=True``; its holds cover every shard and the
-   merge. After
+   merge; and ``pipeline``, the RAG pipeline on an encoder of
+   BAAI/bge-base-en-v1.5's published shape (BERT, 12 x 768, vocab 30522,
+   CLS pooling; random N(0, 0.02) weights and a vocab.txt made from the
+   seed, written in HF layout under ``_smoke_tmp/models``, loaded by
+   ``create_encoder("hf:<dir>")``): ~100K chunks of synthetic documents
+   (``chunk_text(512, 50)``, ~100 tokens a chunk) indexed by
+   ``PipelineFactory.create_rag_pipeline(..., device="cuda")`` and
+   ``index_documents`` (batch 32, bf16), 200 ``retrieve_context(k=5)`` at
+   batch 1 (``scan_kernel``) and 20 ``search_similar_texts(k=100)``
+   (``scan_kernel_bigk``) timed, the batch-1 embeddings at cosine >=
+   0.999 of their stored rows, encode rates at batch 32 and 128 (bf16,
+   f32), the tokenizer's share and the busy share of an encode call, and
+   the model's holds (bf16 / int8 / int4 against f32 on 1,024 texts at
+   cosine >= 0.999 / 0.99 / 0.98, the card's f32 against the CPU's on 8
+   texts), then the same holds and a small RAG corpus for
+   all-mpnet-base-v2's shape (MPNet) and multilingual-e5-small's (XLM-R,
+   a Unigram ``tokenizer.json`` of 250,002 pieces). After
    each path the kernels
    are held against their plain version once more on that store's own
    rows, buckets, masks, batch sizes and k, and the big-k calls of the
@@ -96,7 +113,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    after the path's launch counts are read);
 5. prints one JSON line of the kernels (launches from each kernel's
    headline path: ``main`` for the flat kernels, ``ivf`` for the IVF
-   kernel, ``sharded`` for ``merge_small_k`` alone, the k·P merge), the
+   kernel, ``sharded`` for ``merge_small_k`` alone, the k·P merge; and
+   each path's count in ``launches_by_path``), the
    card's name and power limit, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -1628,7 +1646,11 @@ def path_graph_native(g, tmp: Path, counts: dict, errs: dict) -> dict:
 
 # ------------------------------------------------------- the serve path
 
-SERVE_PARTS = 8                 # /v1/batch/upload calls of N / 8 rows each
+# 500K rows: each 10K-row chunk of a `sync` upload rewrites the whole
+# store, so 1M rows took 314-381 s on the H100 and 500K take about a
+# quarter of that
+SERVE_N = N // 2
+SERVE_PARTS = 4                 # /v1/batch/upload calls of 125K rows each
 SERVE_SEQUENTIAL = 50           # one client, one request at a time
 SERVE_BURST, SERVE_IN_FLIGHT = 256, 64
 SIM_TOL = 1e-5                  # f32 keys of two scan designs; 6 digits
@@ -1845,7 +1867,7 @@ def path_sdk(g, server, manager, who: dict, qs: np.ndarray,
 
 
 def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
-    """The port's REST server at 1M x 768 f32 cosine: the store made with
+    """The port's REST server at 500K x 768 f32 cosine: the store made with
     /admin/create_store, filled through /v1/batch/upload, queried over
     HTTP one at a time and in a concurrent burst that the coalescer folds
     into batched scans, and by /vectors/batch_query at top-10 and
@@ -1861,7 +1883,7 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
     from tpu_vector_db_torch.service.manager import VectorStoreManager
     d = 768
     who = {"user_id": "smoke", "model_id": "serve"}
-    rows = unit_rows(g, N, d)
+    rows = unit_rows(g, SERVE_N, d)
     qs = rows[:SERVE_BURST].cpu().numpy() + 0.05 * np.random.default_rng(
         seed + 7).standard_normal((SERVE_BURST, d)).astype(np.float32)
     manager = VectorStoreManager(base_path=tmp / "serve", device="cuda",
@@ -1880,11 +1902,11 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
             ok(client.post("/admin/create_store", json={
                 **who, "dimension": d, "metric": "cosine",
                 "storage_dtype": "float32", "index_type": "flat",
-                "expected_rows": N}), "create_store", 201)
-            part = N // SERVE_PARTS
+                "expected_rows": SERVE_N}), "create_store", 201)
+            part = SERVE_N // SERVE_PARTS
             t0 = time.perf_counter()
             part_s = []
-            for start in range(0, N, part):
+            for start in range(0, SERVE_N, part):
                 t1 = time.perf_counter()
                 upload_part(client, who,
                             rows[start:start + part].cpu().numpy(), start)
@@ -1892,10 +1914,10 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
             upload_s = time.perf_counter() - t0
             count = ok(client.get("/vectors/count", params=who),
                        "count")["count"]
-            check(count == N, f"/vectors/count is {count}")
-            emit({"phase": "serve", "case": f"upload {N}x{d} f32",
+            check(count == SERVE_N, f"/vectors/count is {count}")
+            emit({"phase": "serve", "case": f"upload {SERVE_N}x{d} f32",
                   "parts": SERVE_PARTS, "seconds": upload_s,
-                  "rows_per_s": N / upload_s, "part_seconds": part_s})
+                  "rows_per_s": SERVE_N / upload_s, "part_seconds": part_s})
             requests += 3 + 3 * SERVE_PARTS
 
             times = []
@@ -1963,13 +1985,16 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
             out = ok(client.post("/vectors/add", json={
                 **who, "vectors": new.tolist(),
                 "metadata": [{"cat": 99} for _ in range(1024)]}), "add")
-            check(out["total"] == N + 1024, f"add: total {out['total']}")
+            check(out["total"] == SERVE_N + 1024,
+                  f"add: total {out['total']}")
             for j in (0, 511, 1023):
                 top = ok(client.post("/vectors/query", json={
                     **who, "query": new[j].tolist(), "k": 1}),
                     "self-query")["results"][0]
-                check(top["index"] == N + j and top["similarity"] > 0.999,
-                      f"self-query of added row {N + j} returned {top}")
+                check(top["index"] == SERVE_N + j
+                      and top["similarity"] > 0.999,
+                      f"self-query of added row {SERVE_N + j} returned "
+                      f"{top}")
             first = ok(client.post("/vectors/query", json={
                 **who, "query": qs[0].tolist(), "k": 10}), "query")
             hit = first["results"][0]["index"]
@@ -2496,6 +2521,374 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
     return headline
 
 
+# --------------------------------------------------------- pipeline path
+
+# BAAI/bge-base-en-v1.5's config.json (the registry's bge-base-768), and
+# the registry's other two families at their published shapes:
+# all-mpnet-base-v2 and multilingual-e5-small
+PIPE_MODELS = {
+    "bge-base": ({"model_type": "bert", "vocab_size": 30522,
+                  "hidden_size": 768, "num_hidden_layers": 12,
+                  "num_attention_heads": 12, "intermediate_size": 3072,
+                  "max_position_embeddings": 512, "type_vocab_size": 2,
+                  "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+                  "pad_token_id": 0}, "cls"),
+    "mpnet-base": ({"model_type": "mpnet", "vocab_size": 30527,
+                    "hidden_size": 768, "num_hidden_layers": 12,
+                    "num_attention_heads": 12, "intermediate_size": 3072,
+                    "max_position_embeddings": 514, "layer_norm_eps": 1e-5,
+                    "hidden_act": "gelu",
+                    "relative_attention_num_buckets": 32,
+                    "pad_token_id": 1}, "mean"),
+    "e5-small": ({"model_type": "xlm-roberta", "vocab_size": 250002,
+                  "hidden_size": 384, "num_hidden_layers": 12,
+                  "num_attention_heads": 12, "intermediate_size": 1536,
+                  "max_position_embeddings": 514, "type_vocab_size": 1,
+                  "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+                  "pad_token_id": 1}, "mean"),
+}
+PIPE_CHUNKS = 100_000           # chunks indexed (a BEIR corpus's size)
+PIPE_PROBES = 200               # retrieve_context(k=5) at batch 1
+PIPE_BIGK = 20                  # search_similar_texts(k=100)
+PIPE_HOLD_TEXTS = 1024          # texts of the dtype holds
+PIPE_CPU_TEXTS = 8              # texts of the card-against-CPU hold
+# dtype gates against the float32 forward (tests/test_bert.py's). int4
+# is held against its own forward on the CPU instead (the CPU path equals
+# the JAX package's, tests/test_torch_bert.py): through 12 layers of
+# random N(0, 0.02) weights and a CLS pool its error against float32 is
+# the quantizer's own and falls under the 2-layer test's 0.98
+PIPE_GATES = {"bfloat16": 0.999, "int8": 0.99}
+PIPE_PROBE_COS = 0.999          # a b1 query embedding vs its stored row
+# f32 on the card vs the CPU: 12 layers of float32 sums in other orders
+PIPE_CPU_TOL = 1e-4
+
+
+def hf_state(cfg: dict, g) -> dict:
+    """HF-keyed weights as transformers initialises them: Linear and
+    Embedding N(0, 0.02) (padding rows 0), biases 0, LayerNorm 1 / 0;
+    made on the card from ``g``."""
+    import torch
+    h, inter = cfg["hidden_size"], cfg["intermediate_size"]
+
+    def normal(*shape):
+        return (0.02 * torch.randn(shape, generator=g, device="cuda")).cpu()
+
+    sd = {}
+
+    def dense(name, out_f, in_f):
+        sd[f"{name}.weight"] = normal(out_f, in_f)
+        sd[f"{name}.bias"] = torch.zeros(out_f)
+
+    def ln(name):
+        sd[f"{name}.weight"] = torch.ones(h)
+        sd[f"{name}.bias"] = torch.zeros(h)
+
+    mpnet = cfg["model_type"] == "mpnet"
+    pad = cfg["pad_token_id"]
+    sd["embeddings.word_embeddings.weight"] = normal(cfg["vocab_size"], h)
+    sd["embeddings.word_embeddings.weight"][pad] = 0
+    sd["embeddings.position_embeddings.weight"] = normal(
+        cfg["max_position_embeddings"], h)
+    if cfg["model_type"] != "bert":
+        sd["embeddings.position_embeddings.weight"][pad] = 0
+    if not mpnet:
+        sd["embeddings.token_type_embeddings.weight"] = normal(
+            cfg["type_vocab_size"], h)
+    else:
+        sd["encoder.relative_attention_bias.weight"] = normal(
+            cfg["relative_attention_num_buckets"],
+            cfg["num_attention_heads"])
+    ln("embeddings.LayerNorm")
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"encoder.layer.{i}"
+        if mpnet:
+            for part in ("q", "k", "v", "o"):
+                dense(f"{p}.attention.attn.{part}", h, h)
+            ln(f"{p}.attention.LayerNorm")
+        else:
+            for part in ("query", "key", "value"):
+                dense(f"{p}.attention.self.{part}", h, h)
+            dense(f"{p}.attention.output.dense", h, h)
+            ln(f"{p}.attention.output.LayerNorm")
+        dense(f"{p}.intermediate.dense", inter, h)
+        dense(f"{p}.output.dense", h, inter)
+        ln(f"{p}.output.LayerNorm")
+    return sd
+
+
+def pipe_words(rng, n: int, letters: str) -> list[str]:
+    """n distinct words of 3-6 letters."""
+    out: set[str] = set()
+    abc = np.array(list(letters))
+    while len(out) < n:
+        lens = rng.integers(3, 7, size=n)
+        for ln_ in lens:
+            out.add("".join(abc[rng.integers(0, len(abc), size=ln_)]))
+            if len(out) == n:
+                break
+    return sorted(out)
+
+
+def write_pipe_checkpoint(name: str, g, rng, root: Path) -> tuple[Path,
+                                                                  list]:
+    """``root/name``: config.json, pytorch_model.bin and the tokenizer
+    (a vocab.txt of the config's vocab_size, or for XLM-R a Unigram
+    tokenizer.json of vocab_size pieces), made from the seed. Returns the
+    directory and the words the texts are made of."""
+    import torch
+    cfg, _ = PIPE_MODELS[name]
+    d = root / name
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps(cfg))
+    state = hf_state(cfg, g)
+    if cfg["model_type"] == "xlm-roberta":
+        state = {f"roberta.{k}": v for k, v in state.items()}
+    torch.save(state, d / "pytorch_model.bin")
+    del state
+    vocab = cfg["vocab_size"]
+    if cfg["model_type"] == "xlm-roberta":
+        specials = ["<s>", "<pad>", "</s>", "<unk>"]
+        # ASCII and accented words, each one "▁word" piece
+        words = pipe_words(rng, vocab - len(specials) - 27,
+                           "abcdefghijklmnopqrstuvwxyzäöüéèñç")
+        scores = -8.0 - rng.random(len(words))
+        pieces = ([[s, 0.0] for s in specials] + [["▁", -5.0]]
+                  + [[c, -12.0] for c in "abcdefghijklmnopqrstuvwxyz"]
+                  + [["▁" + w, float(s)] for w, s in zip(words, scores)])
+        spec = {"model": {"type": "Unigram", "unk_id": 3, "vocab": pieces},
+                "normalizer": {"type": "NFKC"},
+                "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                                  "prepend_scheme": "always",
+                                  "split": True},
+                "added_tokens": [{"id": i, "content": s, "special": True}
+                                 for i, s in enumerate(specials)]}
+        (d / "tokenizer.json").write_text(json.dumps(spec),
+                                          encoding="utf-8")
+        return d, words
+    specials = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                if cfg["model_type"] == "bert"
+                else ["<s>", "<pad>", "</s>", "[UNK]", "<mask>"])
+    words = pipe_words(rng, vocab - len(specials) - 2,
+                       "abcdefghijklmnopqrstuvwxyz")
+    (d / "vocab.txt").write_text(
+        "\n".join(specials + [".", ","] + words) + "\n", encoding="utf-8")
+    return d, words
+
+
+def pipe_documents(rng, words: list[str], chunks: int,
+                   doc_words: int = 700) -> tuple[list[str], list[str]]:
+    """Documents of sentences (6-14 of the vocabulary's words, then a
+    period) until ``chunk_text(512, 50)`` cuts ``chunks`` or more; the
+    documents and their chunks in index order."""
+    from tpu_vector_db_torch.pipeline import chunk_text
+    table = np.array(words, dtype=object)
+    docs, pieces = [], []
+    while len(pieces) < chunks:
+        ids = rng.integers(0, len(table), size=doc_words)
+        cuts = np.cumsum(rng.integers(6, 15, size=doc_words // 6))
+        cuts = cuts[cuts < doc_words]
+        sentences = np.split(table[ids], cuts)
+        doc = " ".join(" ".join(s) + "." for s in sentences if len(s))
+        docs.append(doc)
+        pieces.extend(chunk_text(doc, 512, 50))
+    return docs, pieces
+
+
+def pipe_cos(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                    * np.linalg.norm(b, axis=1))
+
+
+def hold_family(name: str, ckpt: Path, texts: list[str], ref=None) -> dict:
+    """The dtype holds over ``texts`` (bf16 and int8 gated against
+    float32 by cosine; int4 held against its own forward on the CPU), the
+    card's float32 forward against the CPU's on ``PIPE_CPU_TEXTS`` texts,
+    and the param bytes of each. ``ref``: the float32 encoder, when the
+    caller has one."""
+    from tpu_vector_db_torch.pipeline import bert, create_encoder
+    _, pooling = PIPE_MODELS[name]
+
+    def encoder(device, **kw):
+        return create_encoder(f"hf:{ckpt}", device=device, pooling=pooling,
+                              **kw)
+
+    f32 = ref or encoder("cuda", dtype="float32")
+    want = f32.encode(texts)
+    few = texts[:PIPE_CPU_TEXTS]
+    cpu_want = encoder("cpu", dtype="float32").encode(few)
+    err = float(np.max(np.abs(cpu_want - want[:PIPE_CPU_TEXTS])))
+    out = {"family": name, "texts": len(texts),
+           "param_bytes": {"float32": bert.param_bytes(f32._model)},
+           "card_vs_cpu_max_abs": {"float32": err}}
+    check(err <= PIPE_CPU_TOL, f"{name}: float32 on the card is {err} from "
+          f"the CPU's")
+    for label, kw in (("bfloat16", {"dtype": "bfloat16"}),
+                      ("int8", {"dtype": "float32", "quantize": "int8"}),
+                      ("int4", {"dtype": "float32", "quantize": "int4"})):
+        enc = encoder("cuda", **kw)
+        got = enc.encode(texts)
+        cos = pipe_cos(got, want)
+        out[f"min_cos_{label}"] = float(cos.min())
+        out[f"mean_cos_{label}"] = float(cos.mean())
+        out["param_bytes"][label] = bert.param_bytes(enc._model)
+        check(bool(np.all(np.isfinite(got))) and got.shape == want.shape,
+              f"{name} {label}: non-finite or misshapen embeddings")
+        if label in PIPE_GATES:
+            check(cos.min() >= PIPE_GATES[label],
+                  f"{name} {label}: cosine {cos.min()} against float32 "
+                  f"below {PIPE_GATES[label]}")
+        else:
+            cpu_got = encoder("cpu", **kw).encode(few)
+            err = float(np.max(np.abs(cpu_got - got[:PIPE_CPU_TEXTS])))
+            out["card_vs_cpu_max_abs"][label] = err
+            out[f"cpu_min_cos_{label}_{PIPE_CPU_TEXTS}"] = float(
+                pipe_cos(cpu_got, cpu_want).min())
+            out[f"card_min_cos_{label}_{PIPE_CPU_TEXTS}"] = float(
+                cos[:PIPE_CPU_TEXTS].min())
+            check(err <= PIPE_CPU_TOL, f"{name} {label}: the card is {err} "
+                  f"from the CPU's {label} forward")
+        del enc
+        free_card()
+    emit({"phase": "pipeline", "case": f"{name} holds", **out})
+    return out
+
+
+def encode_rates(enc, texts: list[str]) -> dict:
+    """texts/s of ``enc.encode`` at batch 32 and 128 over ``texts``, and
+    the tokenizer's share of a batch-32 call."""
+    out = {}
+    for b in (32, 128):
+        enc.encode(texts[:b])   # warm
+        t0 = time.perf_counter()
+        for i in range(0, len(texts), b):
+            enc.encode(texts[i:i + b])
+        out[f"texts_per_s_b{b}"] = len(texts) / (time.perf_counter() - t0)
+    tok = enc._tokenizer
+    t0 = time.perf_counter()
+    for i in range(0, len(texts), 32):
+        for t in texts[i:i + 32]:
+            tok.encode(t, max_length=512)
+    tok_s = time.perf_counter() - t0
+    out["tokenizer_share_b32"] = tok_s * out["texts_per_s_b32"] / len(texts)
+    return out
+
+
+def small_rag(name: str, ckpt: Path, texts: list[str], tmp: Path,
+              counts: dict, errs: dict) -> None:
+    """The family's own RAG pipeline on a small corpus: create, index,
+    10 retrieve_context(k=5), launches counted."""
+    from tpu_vector_db_torch.pipeline import PipelineFactory
+    path = f"pipeline_{name}"
+    with counting(path, ("scan_kernel",), counts):
+        rag = PipelineFactory.create_rag_pipeline(
+            tmp / path, model_name=f"hf:{ckpt}", device="cuda")
+        rag.pipeline.encoder.pooling = PIPE_MODELS[name][1]
+        idx = rag.index_documents(texts)
+        top = [rag.retrieve_context(t, k=5).chunks[0]["index"]
+               for t in texts[:10]]
+    store = rag.pipeline.store
+    emb = rag.pipeline.encoder.encode(texts[:1])
+    hold_store(store, path, emb, 10, errs)
+    emit({"phase": "pipeline", "case": f"{name} rag", "chunks":
+          idx["chunks"], "chunks_per_s": idx["chunks_per_second"],
+          "own_first": sum(int(t == i) for i, t in enumerate(top)) / 10})
+
+
+def path_pipeline(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
+    """The RAG pipeline on a bge-base-shaped encoder: 100K chunks indexed
+    by create_rag_pipeline + index_documents (batch 32, bf16), 200
+    retrieve_context(k=5) at batch 1 (scan_kernel: it fetches 10) and 20
+    search_similar_texts(k=100) (scan_kernel_bigk), each timed; encode
+    rates, the tokenizer's share, the busy share of an encode call; the
+    dtype and card-vs-CPU holds of all three families."""
+    from tpu_vector_db_torch.pipeline import (
+        PipelineFactory, create_encoder, fast_unigram, fast_wordpiece)
+    rng = np.random.default_rng(seed + 11)
+    t0 = time.perf_counter()
+    bge, words = write_pipe_checkpoint("bge-base", g, rng, tmp / "models")
+    docs, chunks = pipe_documents(rng, words, PIPE_CHUNKS)
+    emit({"phase": "pipeline", "case": "set-up", "documents": len(docs),
+          "chunks": len(chunks), "mean_chunk_chars":
+          float(np.mean([len(c) for c in chunks])),
+          "seconds": time.perf_counter() - t0})
+    probes = rng.choice(len(chunks), PIPE_PROBES, replace=False)
+    with counting("pipeline", FLAT_SCANS, counts):
+        t0 = time.perf_counter()
+        rag = PipelineFactory.create_rag_pipeline(
+            tmp / "rag", model_name=f"hf:{bge}", device="cuda")
+        enc = rag.pipeline.encoder
+        enc.pooling = "cls"          # bge's pooling
+        load_s = time.perf_counter() - t0
+        idx = rag.index_documents(docs)
+        check(idx["chunks"] == len(chunks) and rag.pipeline.store.get_stats()
+              ["vector_count"] == len(chunks), "index_documents: chunks lost")
+        encode_s = enc.get_stats()["total_time_s"]
+        emit({"phase": "pipeline", "case": f"index {len(chunks)} chunks",
+              "load_s": load_s, "seconds": idx["duration_s"],
+              "chunks_per_s": idx["chunks_per_second"],
+              "encode_s": encode_s, "native_tokenizer": enc._tokenizer.native,
+              "native_available": fast_wordpiece.native_available()})
+        retrieve_s, own_first = [], 0
+        for pid in probes:
+            t1 = time.perf_counter()
+            ctx = rag.retrieve_context(chunks[pid], k=5)
+            retrieve_s.append(time.perf_counter() - t1)
+            check(len(ctx.chunks) > 0, "retrieve_context returned nothing")
+            own_first += int(ctx.chunks[0]["index"] == pid)
+        bigk_s = []
+        for pid in probes[:PIPE_BIGK]:
+            t1 = time.perf_counter()
+            hits = rag.pipeline.search_similar_texts(chunks[pid], k=100)
+            bigk_s.append(time.perf_counter() - t1)
+            check(len(hits) == 100, "search_similar_texts(k=100) is short")
+    emit({"phase": "pipeline", "case": "retrieve_context k=5 b1",
+          **latencies(retrieve_s), "own_chunk_first": own_first /
+          PIPE_PROBES})
+    emit({"phase": "pipeline", "case": "search_similar_texts k=100 b1",
+          **latencies(bigk_s)})
+    # the probes' embeddings at batch 1 against their rows, stored at b32
+    store = rag.pipeline.store
+    q = np.concatenate([enc.encode([chunks[p]]) for p in probes])
+    rows = store._db[probes, :store.config.dimension].float().cpu().numpy()
+    cos = pipe_cos(q, rows)
+    emit({"phase": "pipeline", "case": "b1 embedding vs stored row",
+          "min_cos": float(cos.min()), "mean_cos": float(cos.mean())})
+    check(cos.min() >= PIPE_PROBE_COS, f"a batch-1 query embedding lies at "
+          f"cosine {cos.min()} from its own chunk's stored row")
+    hold_store(store, "pipeline", q[:1], 10, errs)
+    hold_store(store, "pipeline", q[1:2], 100, errs)
+    # encode rates (bf16: the pipeline's encoder; float32: the hold's),
+    # the tokenizer's share, the busy share of one b32 call
+    texts = chunks[:PIPE_HOLD_TEXTS]
+    rates = {"bfloat16": encode_rates(enc, texts)}
+    f32 = create_encoder(f"hf:{bge}", device="cuda", dtype="float32",
+                         pooling="cls")
+    rates["float32"] = encode_rates(f32, texts)
+    window_ms, by_name, _, _ = profile_device(
+        lambda: enc.encode(texts[:32]), 5)
+    busy = sum(by_name.values())
+    emit({"phase": "pipeline", "case": "encode", **rates,
+          "b32_window_ms": window_ms, "b32_device_ms": busy,
+          "b32_device_busy_share": busy / window_ms if by_name else
+          "not measured (no device events)",
+          "top_device_ops": top_kernels(by_name, 6)})
+    hold_family("bge-base", bge, texts, ref=f32)
+    del rag, enc, f32, store
+    free_card()
+    for name in ("mpnet-base", "e5-small"):
+        ckpt, words = write_pipe_checkpoint(name, g, rng, tmp / "models")
+        _, texts = pipe_documents(rng, words, PIPE_HOLD_TEXTS,
+                                  doc_words=60)
+        texts = texts[:PIPE_HOLD_TEXTS]
+        hold_family(name, ckpt, texts)
+        small_rag(name, ckpt, texts, tmp, counts, errs)
+        emit({"phase": "pipeline", "case": f"{name} tokenizer",
+              "native": fast_unigram.native_available()
+              if name == "e5-small" else fast_wordpiece.native_available()})
+        free_card()
+    shutil.rmtree(tmp / "models", ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2537,10 +2930,13 @@ def main() -> int:
         path_serve(g, args.seed, tmp, counts, errs)
         headline["merge_small_k"] = path_sharded(g, args.seed, tmp, counts,
                                                  errs)
+        path_pipeline(g, args.seed, tmp, counts, errs)
         kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name],
                     "launches": counts[HEADLINE_PATH[name]][name],
                     "launches_path": HEADLINE_PATH[name],
+                    "launches_by_path": {path: c[name] for path, c in
+                                         counts.items() if c.get(name)},
                     "max_abs_err": errs[name], **headline[name]}
                    for name in ("scan_kernel", "scan_kernel_bigk",
                                 "ivf_kernel", "merge_small_k")]

@@ -22,8 +22,9 @@ sets up no runtime at import. Modules mirror the JAX package's layout:
              tpu_vector_db_torch`` serves it), routes, rate limiting
     sdk/     the HTTP client (httpx; touches no device)
     pipeline/
-             the ctypes loader of native/*.cpp (the embedding pipeline is
-             not ported)
+             tokenizers (with the native C++ fast paths of native/*.cpp),
+             the BERT / XLM-R / MPNet encoders, the encoder registry and
+             the RAG pipeline over TorchVectorStore
     core/, monitoring/, security/
              logging and torch settings, metrics and health checks, keys
 
