@@ -33,8 +33,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    timed, on the candidate shapes of the IVF and flat batch-1 paths (the
    "merge" lines);
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
-   eight paths, the server on a ninth, the sharded store on a tenth and
-   the embedding pipeline on an eleventh,
+   eight paths, the server on a ninth, the sharded store on a tenth,
+   multi-host serving on an eleventh and the embedding pipeline on a
+   twelfth,
    each with the launch counts set to 0 just before it and read just
    after: the main path, 1M x 768
    f32 cosine with metadata (batch 1 and 64, top-100, top-2000, filter,
@@ -88,8 +89,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    x 128 of the graph regime, P = 2, native build, a 10K extend, recall@10
    at ef 100, flush + reopen from ``ann_sharded_graph.npz``) and the
    manager with ``sharded=True``; its holds cover every shard and the
-   merge; and ``pipeline``, the RAG pipeline on an encoder of
-   BAAI/bge-base-en-v1.5's published shape (BERT, 12 x 768, vocab 30522,
+   merge (and the multihost path's shards and merges, cut from the same
+   rows); ``multihost``, config #5 from two processes of one serving
+   group: first a pair of processes (``--multihost-pair``) times the
+   cross-process merge alone (one gloo all-gather of (Q, k) winners)
+   against its plain version, then two port servers
+   (``--multihost-worker``: ``tpu_vector_db_torch.api.main`` with
+   ``VECTOR_DB_COORDINATOR``, one shard a process on the card) open the
+   sharded path's flushed store from hard-linked copies and take lockstep
+   REST traffic (50 b1 top-10 queries, batch_query b64 top-10 and
+   top-100, a filter, a 1,000-row add whose rows find themselves, a
+   10-row delete), every answer equal on both hosts and to the
+   single-process store's; rank 1 is killed, rank 0 answers 503
+   ``peer_lost`` (then fast, and on ``/health``), exits on SIGTERM and
+   prints its launch counts; and ``pipeline``, the RAG pipeline on an
+   encoder of BAAI/bge-base-en-v1.5's published shape (BERT, 12 x 768,
+   vocab 30522,
    CLS pooling; random N(0, 0.02) weights and a vocab.txt made from the
    seed, written in HF layout under ``_smoke_tmp/models``, loaded by
    ``create_encoder("hf:<dir>")``): ~100K chunks of synthetic documents
@@ -880,6 +895,7 @@ def device_ms(fn, reps: int, expect: tuple[str, ...],
                 "reps": reps}
     merges = [merge_kernels(t) for _, t in agree]
     return {"device_ms": agree[1][0], "device_ms_traces": sums,
+            "launches_seen": seen,
             "device_ms_by_kernel": top_kernels(agree[1][1]),
             "merge_small_k_ran": all(m[0] for m in merges),
             "merge_topk_kernel_ran": any(m[1] for m in merges)}
@@ -910,7 +926,7 @@ def device_share(store, queries: np.ndarray, k: int, reps: int,
     share is a lower bound of the unprofiled one. ``expect``: the kernels
     a call launches once (``profile_device``); ``kernel_device_ms`` is
     their time alone. For k <= 32 every merge must be merge_small_k."""
-    window_ms, by_name, _, whole = profile_device(
+    window_ms, by_name, seen, whole = profile_device(
         lambda: store.batch_query(queries, k=k), reps, expect)
     busy_ms = sum(by_name.values())
     out = {"Q": len(queries), "k": k, "reps": reps,
@@ -923,6 +939,7 @@ def device_share(store, queries: np.ndarray, k: int, reps: int,
     if not whole:
         out["device_ms_per_call"] = "not measured (the profiler missed " \
             "events)"
+        out["launches_seen"] = launches_seen(seen, expect)
         return out
     out.update(device_ms_per_call=busy_ms,
                device_busy_share=busy_ms / window_ms,
@@ -2081,12 +2098,16 @@ def shard_launches(fn) -> dict:
 
 
 def hold_sharded(store, path: str, queries: np.ndarray, k: int, errs: dict,
-                 filter_metadata: dict | None = None) -> None:
+                 filter_metadata: dict | None = None,
+                 split: int | None = None) -> None:
     """Each shard's flat kernel against its plain version on that shard's
     own inputs (rows, mask, scales, local count; k > 32: the line gives
     the most key-scratch chunks a shard's call is cut into), then the k·P
     merge of the kernels' candidates against its plain version, bit for
-    bit (k <= 32: merge_small_k; k > 32 the sort merge, plain torch)."""
+    bit (k <= 32: merge_small_k; k > 32 the sort merge, plain torch).
+    ``split``: the store's one shard cut into that many equal shards (the
+    shards a group of ``split`` processes holds of the same rows; their
+    candidates are what the cross-process merge merges)."""
     import torch
     from tpu_vector_db_torch.ops import cuda_scan, ivf_scan
     from tpu_vector_db_torch.parallel.mesh import local_count
@@ -2094,6 +2115,12 @@ def hold_sharded(store, path: str, queries: np.ndarray, k: int, errs: dict,
         gather_candidates, merge_candidates)
     args = store._scan_inputs(queries, store._query_mask(filter_metadata))
     rows, n = store._rows_per_shard, store._n_dev
+    if split:
+        check(n == 1, "only a one-shard store is split")
+        rows, n = rows // split, split
+        for key in ("db", "db_sqnorms", "filter_mask", "db_scales"):
+            if args[key] is not None:
+                args[key] = list(torch.split(args[key][0], rows))
     name = cuda_scan.kernel_name(k)
     keys_l, ids_l, err, ok, chunks = [], [], 0.0, True, 0
     for s in range(n):
@@ -2217,7 +2244,8 @@ def sharded_recall(store, qs: np.ndarray, n: int, k: int = 10,
     return tie_aware_recall(res, keys, gt_vals, k)
 
 
-def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
+def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict,
+                 record: dict) -> dict:
     """BASELINE config #5: 10M x 128 f32 cosine in a ShardedVectorStore
     over make_device_mesh() (every visible card: one shard on one card),
     answering as an unsharded TorchVectorStore on the same rows does;
@@ -2225,7 +2253,9 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
     then a sharded IVF (2M x 128 clustered, P = 2), a sharded beam graph
     (100K x 128 of the graph regime, P = 2, native build, extended by 10K,
     flushed and reopened from ann_sharded_graph.npz) and the manager with
-    sharded=True. Returns the k·P merge's headline timings."""
+    sharded=True. Returns the k·P merge's headline timings; ``record``
+    gets the queries and the flushed store's answers that the multihost
+    path is held to (``MH_CASES``)."""
     import torch
     from tpu_vector_db_torch import TorchVectorStore, VectorStoreConfig
     from tpu_vector_db_torch.parallel import (ShardedVectorStore,
@@ -2318,6 +2348,11 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
             answers[label] = got
         emit({"phase": "sharded", "case": "delete 0.1%", "deleted":
               SHARD_DELETED, "equal_to_unsharded": True})
+        record["queries"] = qs
+        record["answers"] = {label: [store.batch_query(
+            qs[i:i + q_n], k=k, **kw)[0] for i in range(reps)]
+            if q_n == 1 else store.batch_query(qs[:q_n], k=k, **kw)
+            for label, q_n, k, reps, kw in MH_CASES}
         keep["flat"] = flat
         del flat
         # -- flush, reopen the same files at P = 4 on one card
@@ -2359,6 +2394,15 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
             r = device_share(reopened, qs[:q_n], 10, 20, expect_flat(10))
             emit({"phase": "sharded", "case": f"P={SHARD_P} top-10 "
                   f"b{q_n} profiled", **r})
+        # P = 1's device time in a phase of its own, by device_ms's
+        # traces (whole-call traces of P = 1 came back short when the
+        # script ran whole)
+        for q_n in (1, 64):
+            floor, by = bound(n, d * 4, q_n, d, 10, "float32", 0)
+            dev = device_ms(lambda: store.batch_query(qs[:q_n], k=10), 20,
+                            expect_flat(10), floor)
+            emit({"phase": "sharded", "case": f"P=1 top-10 b{q_n} device",
+                  **dev, "bound_ms": floor, "bound_by": by})
         keep["store"], keep["reopened"] = store, reopened
         del store, reopened
 
@@ -2509,6 +2553,12 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
     for q_n, k in ((1, 10), (64, 10), (1, 100), (64, 100)):
         hold_sharded(keep["store"], "sharded", qs[:q_n], k, errs)
         hold_sharded(keep["reopened"], "sharded", qs[:q_n], k, errs)
+    # the multihost path's shapes: the same flushed rows in MH_HOSTS
+    # shards (one a process), each scanned, and their candidates merged as
+    # the cross-process merge merges them
+    for label, q_n, k, _, kw in MH_CASES:
+        hold_sharded(keep["store"], "multihost", qs[:q_n], k, errs,
+                     kw.get("filter_metadata"), split=MH_HOSTS)
     hold_store(keep["flat"], "sharded", qs, 10, errs, filt)
     hold_sharded(keep["reopened"], "sharded", qs, 10, errs, filt)
     hold_sharded_ivf(keep["ivf"], "sharded", iqs[:8], 10, errs)
@@ -2519,6 +2569,385 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
     keep.clear()
     free_card()
     return headline
+
+
+# ------------------------------------------------------ the multihost path
+
+# BASELINE config #5 served by two server processes of one serving group:
+# the sharded path's flushed store, one shard a process (both on cuda:0
+# on a one-card machine: P = 2), driven in lockstep over REST
+MH_HOSTS = 2
+MH_USER, MH_MODEL = "smoke", "config5"
+MH_KEY, MH_ADMIN = "smoke-mh-api-key", "smoke-mh-admin-key"
+MH_SEQUENTIAL = 50              # b1 top-10 queries, one at a time
+MH_BATCH_REPS = 10              # each batch_query case
+MH_ADD, MH_DELETE = 1000, 10
+MH_FILTER = {"g": 7}
+# (label, batch, k, calls, query options): what the sharded path records
+# of its flushed store and the multihost path is held to; batch 1 cases
+# take queries 0..calls-1 one at a time
+MH_CASES = (("b1 top-10", 1, 10, MH_SEQUENTIAL, {}),
+            ("b64 top-10", 64, 10, 1, {}),
+            ("b64 top-100", 64, 100, 1, {}),
+            ("b1 1% filter top-10", 1, 10, 1,
+             {"filter_metadata": MH_FILTER}))
+MH_UP_S, MH_LOAD_S, MH_CALL_S, MH_EXIT_S = 240, 600, 120, 300
+MH_DEAD_503_S, MH_FAST_FAIL_S = 45, 10
+# the cross-process merge timed alone by a pair of processes
+MH_MERGE_CASES = ((1, 10), (64, 10), (64, 100))
+MH_MERGE_REPS = 50
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_worker(rank: int, coordinator: str, port: int,
+                     data_dir: str) -> int:
+    """``chip_smoke.py --multihost-worker RANK COORD HTTP_PORT DATA_DIR``:
+    the port's REST server as process RANK of the serving group
+    (``tpu_vector_db_torch.api.main``), sharded stores over the visible
+    cards, the coalescer off (each process's batch window would form
+    other batches, and the collectives would not match). At a clean exit
+    (SIGTERM) it prints its launch counts as one JSON line."""
+    import os
+    os.environ.update({
+        "VECTOR_DB_COORDINATOR": coordinator,
+        "VECTOR_DB_NUM_PROCESSES": str(MH_HOSTS),
+        "VECTOR_DB_PROCESS_ID": str(rank), "VECTOR_DB_SHARDED": "1",
+        "VDB_COALESCE_MS": "off", "VECTOR_DB_DATA_DIR": data_dir,
+        "VECTOR_DB_API_KEY": MH_KEY, "VECTOR_DB_ADMIN_KEY": MH_ADMIN,
+        "HOST": "127.0.0.1", "PORT": str(port)})
+    from tpu_vector_db_torch.api.main import main as serve
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    serve(["development"])
+    emit({"phase": "multihost_worker", "rank": rank,
+          "launches": dict(LAUNCHES), "jax_loaded": "jax" in sys.modules})
+    return 0
+
+
+def multihost_pair(rank: int, coordinator: str) -> int:
+    """``chip_smoke.py --multihost-pair RANK COORD``: one of two processes
+    that time ``merge_across_processes`` alone (host clock, ending in a
+    synchronize) on (Q, k) winners on the card, and hold its answer
+    against the plain merge of both processes' candidates."""
+    import torch
+    from tpu_vector_db_torch.ops.ivf_scan import merge_small_k_plain
+    from tpu_vector_db_torch.ops.topk import sort_by_key_then_id
+    from tpu_vector_db_torch.parallel.mesh import (bootstrap_distributed,
+                                                   make_device_mesh)
+    from tpu_vector_db_torch.parallel.sharded_scan import (
+        merge_across_processes)
+    bootstrap_distributed(coordinator, MH_HOSTS, rank, timeout_s=MH_UP_S)
+    mesh = make_device_mesh(n_devices=1)
+
+    def winners(r: int, q_n: int, k: int):
+        g = torch.Generator(device="cuda").manual_seed(1000 * r + k + q_n)
+        keys = torch.randn((q_n, k), generator=g, device="cuda")
+        keys = keys.sort(dim=1, descending=True).values
+        ids = (torch.arange(k, device="cuda", dtype=torch.int32) * 7
+               + r).expand(q_n, k).contiguous()
+        return keys, ids
+
+    for q_n, k in MH_MERGE_CASES:
+        keys, ids = winners(rank, q_n, k)
+        got = merge_across_processes(keys, ids, k, mesh)
+        cand = [winners(r, q_n, k) for r in range(MH_HOSTS)]
+        ck = torch.cat([c[0] for c in cand], 1)
+        ci = torch.cat([c[1] for c in cand], 1)
+        if k <= 32:
+            want = merge_small_k_plain(ck.cpu(), ci.cpu(), k)
+        else:
+            want = [t[:, :k] for t in sort_by_key_then_id(ck.cpu(),
+                                                          ci.cpu())]
+        ok = (torch.equal(got[0].cpu().view(torch.int32),
+                          want[0].view(torch.int32))
+              and torch.equal(got[1].cpu(), want[1].to(torch.int32)))
+        times = []
+        for _ in range(MH_MERGE_REPS):
+            t0 = time.perf_counter()
+            merge_across_processes(keys, ids, k, mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        emit({"phase": "multihost_merge", "rank": rank, "Q": q_n, "k": k,
+              "processes": MH_HOSTS, "equal_to_plain": ok,
+              "host_ms_p50": float(np.median(times)) * 1e3,
+              "host_ms_p99": float(np.percentile(times, 99)) * 1e3,
+              "reps": MH_MERGE_REPS})
+        if not ok:
+            return 1
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+class Host:
+    """One worker process of the multihost path: its command, its data
+    dir (the store's files hard-linked in) and its output files."""
+
+    def __init__(self, rank: int, cmd: list[str], root: Path) -> None:
+        self.rank, self.root = rank, root
+        self.out, self.err = root / "stdout.log", root / "stderr.log"
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(cmd, stdout=out, stderr=err,
+                                         cwd=root)
+
+    def tail(self, n: int = 3000) -> str:
+        return "".join(f"--- rank {self.rank} {f.name}:\n"
+                       f"{f.read_text(errors='replace')[-n:]}\n"
+                       for f in (self.out, self.err) if f.exists())
+
+    def lines(self) -> list[dict]:
+        return [json.loads(x) for x in self.out.read_text().splitlines()
+                if x.startswith("{")]
+
+    def stop(self, timeout: float) -> int:
+        """Wait for the process to end (kill it past ``timeout``)."""
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+            return -9
+
+
+def mh_call(port: int, path: str, payload=None, timeout: float = MH_CALL_S,
+            admin: bool = False):
+    """(status, JSON body, seconds) of one request to a host."""
+    import urllib.error
+    import urllib.request
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        method="POST" if data else "GET",
+        headers={"Content-Type": "application/json", "Authorization":
+                 "Bearer " + (MH_ADMIN if admin else MH_KEY)})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read()
+    return status, json.loads(body.decode()), time.perf_counter() - t0
+
+
+def mh_both(pool, ports: list[int], path: str, payload=None,
+            timeout: float = MH_CALL_S):
+    """The request to every host at once (the fan-out tier's lockstep):
+    the bodies, each 200, and the seconds until the last answered."""
+    t0 = time.perf_counter()
+    replies = list(pool.map(lambda p: mh_call(p, path, payload, timeout),
+                            ports))
+    dt = time.perf_counter() - t0
+    for rank, (status, body, _) in enumerate(replies):
+        check(status == 200, f"multihost rank {rank} {path}: HTTP {status} "
+              f"{body}")
+    bodies = [b for _, b, _ in replies]
+    check(all(b.get("results") == bodies[0].get("results")
+              for b in bodies), f"the hosts answer {path} differently")
+    return bodies, dt
+
+
+def mh_same(results: list[dict], want) -> bool:
+    """A REST answer equal to a store answer: ids, and scores within
+    SHARD_TOL (the REST similarity is rounded to 6 places)."""
+    return ([r["index"] for r in results] == list(want[0])
+            and np.allclose([r["similarity"] for r in results], want[1],
+                            atol=SHARD_TOL, rtol=0))
+
+
+def path_multihost(g, tmp: Path, counts: dict, record: dict) -> dict:
+    """BASELINE config #5 from two port server processes of one serving
+    group over REST, each holding one shard of the sharded path's flushed
+    10M x 128 store: lockstep traffic, answers held to the single-process
+    store's, then the peer-lost 503. Launches: rank 0's own, printed at
+    its clean exit."""
+    import os
+    import signal
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    import torch
+    src = tmp / "sharded"
+    free_card()
+    qs, answers = record["queries"], record["answers"]
+    want_count = SHARD_N - SHARD_DELETED
+    me = str(REPO / "chip_smoke.py")
+    # the cross-process merge alone, timed by a pair of processes
+    coord = f"127.0.0.1:{free_port()}"
+    pair = []
+    for r in range(MH_HOSTS):
+        (tmp / f"mh_pair{r}").mkdir(parents=True)
+        pair.append(Host(r, [sys.executable, me, "--multihost-pair", str(r),
+                             coord], tmp / f"mh_pair{r}"))
+    rcs = [h.stop(MH_UP_S) for h in pair]
+    check(rcs == [0] * MH_HOSTS, "the merge pair failed:\n"
+          + "".join(h.tail() for h in pair))
+    merge = [ln for ln in pair[0].lines()
+             if ln.get("phase") == "multihost_merge"]
+    for ln in merge:
+        emit({**ln, "card": card_line()})
+    check(len(merge) == len(MH_MERGE_CASES), "the merge pair printed "
+          f"{len(merge)} lines")
+
+    hosts = []
+    coord, ports = f"127.0.0.1:{free_port()}", []
+    for r in range(MH_HOSTS):
+        root = tmp / f"mh_host{r}"
+        store_dir = root / "data" / MH_USER / MH_MODEL
+        store_dir.mkdir(parents=True)
+        for f in src.iterdir():    # no write reaches another's files
+            if f.is_file():
+                os.link(f, store_dir / f.name)
+        ports.append(free_port())
+    t_start = time.perf_counter()
+    for r in range(MH_HOSTS):
+        root = tmp / f"mh_host{r}"
+        hosts.append(Host(r, [sys.executable, me, "--multihost-worker",
+                              str(r), coord, str(ports[r]),
+                              str(root / "data")], root))
+    who = {"user_id": MH_USER, "model_id": MH_MODEL}
+    pool = Pool(MH_HOSTS)
+    try:
+        up = [False] * MH_HOSTS
+        while not all(up):
+            check(time.perf_counter() - t_start < MH_UP_S,
+                  "the multihost servers did not come up:\n"
+                  + "".join(h.tail() for h in hosts))
+            for r, h in enumerate(hosts):
+                check(h.proc.poll() is None, f"multihost rank {r} died "
+                      f"early:\n{h.tail()}")
+                if not up[r]:
+                    try:
+                        up[r] = mh_call(ports[r], "/health", timeout=5)[0] \
+                            == 200
+                    except OSError:
+                        pass
+            time.sleep(0.5)
+        startup_s = time.perf_counter() - t_start
+        # the store opens on each host at its first request
+        bodies, load_s = mh_both(
+            pool, ports, f"/vectors/count?user_id={MH_USER}"
+            f"&model_id={MH_MODEL}", timeout=MH_LOAD_S)
+        check(all(b["count"] == want_count for b in bodies),
+              f"multihost counts {bodies}")
+        emit({"phase": "multihost", "case": "startup + load",
+              "processes": MH_HOSTS, "startup_seconds": startup_s,
+              "load_seconds": load_s, "count": want_count})
+
+        def timed(label, path, payloads, check_each):
+            """The payloads in lockstep, each answer held; a case of
+            several calls is warmed by its first call, untimed."""
+            if len(payloads) > 1:
+                check_each(0, mh_both(pool, ports, path, payloads[0])[0][0])
+            times = []
+            for i, payload in enumerate(payloads):
+                bodies, dt = mh_both(pool, ports, path, payload)
+                check_each(i, bodies[0])
+                times.append(dt)
+            r = latencies(times)
+            emit({"phase": "multihost", "case": label, **r,
+                  "equal_to_single_process": True})
+            return r
+
+        def held(label):
+            """/vectors/query call i against the recorded answer i; a
+            batch_query against the recorded batch."""
+            want = answers[label]
+
+            def check_each(i, body):
+                res = body["results"]
+                same = (mh_same(res, want[i]) if "queries" not in body
+                        else len(res) == len(want) and all(
+                            mh_same(r, w) for r, w in zip(res, want)))
+                check(same, f"multihost {label} (call {i}) differs from "
+                      "the single-process store")
+            return check_each
+
+        lat = {}
+        lat["b1_top10"] = timed(
+            "b1 top-10 x50", "/vectors/query",
+            [{**who, "query": qs[i].tolist(), "k": 10}
+             for i in range(MH_SEQUENTIAL)], held("b1 top-10"))
+        for label, k in (("b64 top-10", 10), ("b64 top-100", 100)):
+            lat[f"b64_top{k}"] = timed(label, "/vectors/batch_query",
+                               [{**who, "queries": qs.tolist(), "k": k}]
+                               * MH_BATCH_REPS, held(label))
+        timed("b1 1% filter top-10", "/vectors/query",
+              [{**who, "query": qs[0].tolist(), "k": 10,
+                "filter_metadata": MH_FILTER}], held("b1 1% filter top-10"))
+        # an add whose rows find themselves; a delete they then lose
+        rows = torch.randn((MH_ADD, SHARD_D), generator=g,
+                           device="cuda").cpu().numpy()
+        bodies, add_s = mh_both(pool, ports, "/vectors/add", {
+            **who, "vectors": rows.tolist(),
+            "metadata": [{"g": i % 100} for i in range(MH_ADD)]})
+        check(all(b["total"] == SHARD_N + MH_ADD for b in bodies),
+              f"multihost add {bodies}")
+        bodies, _ = mh_both(pool, ports, "/vectors/batch_query", {
+            **who, "queries": rows.tolist(), "k": 1})
+        found = [res[0]["index"] for res in bodies[0]["results"]]
+        check(found == list(range(SHARD_N, SHARD_N + MH_ADD)),
+              "an added row does not find itself at top-1")
+        gone = list(range(SHARD_N, SHARD_N + MH_DELETE))
+        mh_both(pool, ports, "/vectors/delete", {**who, "indices": gone})
+        bodies, _ = mh_both(pool, ports, "/vectors/batch_query", {
+            **who, "queries": rows[:MH_DELETE].tolist(), "k": 10})
+        check(not set(gone) & {r["index"] for res in bodies[0]["results"]
+                               for r in res},
+              "a deleted row was returned")
+        emit({"phase": "multihost", "case": f"add {MH_ADD} + delete "
+              f"{MH_DELETE}", "add_seconds": add_s,
+              "found_first": MH_ADD, "deleted_returned": 0})
+        # peer death: rank 1 killed, rank 0 degrades to a latched 503
+        hosts[1].proc.send_signal(signal.SIGKILL)
+        hosts[1].stop(30)
+        query = {**who, "query": qs[0].tolist(), "k": 10}
+        status, body, first_s = mh_call(ports[0], "/vectors/query", query,
+                                        timeout=2 * MH_DEAD_503_S)
+        check(status == 503 and body.get("degraded") == "peer_lost"
+              and first_s < MH_DEAD_503_S, f"after the peer's death: HTTP "
+              f"{status} {body} in {first_s:.1f} s")
+        status2, _, next_s = mh_call(ports[0], "/vectors/query", query,
+                                     timeout=2 * MH_FAST_FAIL_S)
+        hstatus, hbody, _ = mh_call(ports[0], "/health", timeout=30)
+        check(status2 == 503 and next_s < MH_FAST_FAIL_S
+              and hstatus == 503 and hbody.get("peer_lost"),
+              f"not latched: query {status2} in {next_s:.1f} s, /health "
+              f"{hstatus} {hbody}")
+        emit({"phase": "multihost", "case": "rank 1 killed",
+              "first_503_seconds": first_s, "next_503_seconds": next_s,
+              "health": hstatus, "error": body["error"][:200]})
+        t0 = time.perf_counter()
+        hosts[0].proc.send_signal(signal.SIGTERM)
+        rc = hosts[0].stop(MH_EXIT_S)
+        exit_s = time.perf_counter() - t0
+        ends = [ln for ln in hosts[0].lines()
+                if ln.get("phase") == "multihost_worker"]
+        check(rc == 0 and len(ends) == 1 and not ends[0]["jax_loaded"],
+              f"rank 0 did not exit cleanly (rc {rc}):\n{hosts[0].tail()}")
+    except BaseException:
+        print("".join(h.tail() for h in hosts), file=sys.stderr)
+        raise
+    finally:
+        pool.shutdown()
+        for h in hosts:
+            if h.proc.poll() is None:
+                h.proc.kill()
+                h.proc.wait(30)
+    counts["multihost"] = ends[0]["launches"]
+    emit({"phase": "launches", "path": "multihost", "rank": 0,
+          **counts["multihost"]})
+    for name in ("scan_kernel", "scan_kernel_bigk", "merge_small_k"):
+        check(counts["multihost"][name] > 0,
+              f"{name} was not launched on path multihost")
+    out = {"card": card_line(), "sigterm_exit_seconds": exit_s,
+           **{f"{key}_{m}_ms": lat[key][f"{m}_ms"]
+              for key in lat for m in ("p50", "p99")}}
+    emit({"phase": "multihost", "case": "summary", **out})
+    return out
 
 
 # --------------------------------------------------------- pipeline path
@@ -2892,6 +3321,11 @@ def path_pipeline(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--multihost-worker", nargs=4,
+                    metavar=("RANK", "COORD", "HTTP_PORT", "DATA_DIR"),
+                    help="serve as one process of the multihost path")
+    ap.add_argument("--multihost-pair", nargs=2, metavar=("RANK", "COORD"),
+                    help="time the cross-process merge as one of two")
     args = ap.parse_args()
 
     if not (REPO / "tpu_vector_db_torch" / "csrc").is_dir():
@@ -2905,6 +3339,12 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.multihost_worker:
+        rank, coord, port, data_dir = args.multihost_worker
+        return multihost_worker(int(rank), coord, int(port), data_dir)
+    if args.multihost_pair:
+        return multihost_pair(int(args.multihost_pair[0]),
+                              args.multihost_pair[1])
     card = card_line()
     emit({"phase": "env", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
@@ -2912,6 +3352,7 @@ def main() -> int:
           "count": torch.cuda.device_count()})
     tmp = REPO / "_smoke_tmp"
     counts: dict[str, dict] = {}
+    record: dict = {}
     try:
         phase_build()
         headline, errs = phase_kernels(768, args.seed)
@@ -2929,7 +3370,8 @@ def main() -> int:
         path_graph_native(g, tmp, counts, errs)
         path_serve(g, args.seed, tmp, counts, errs)
         headline["merge_small_k"] = path_sharded(g, args.seed, tmp, counts,
-                                                 errs)
+                                                 errs, record)
+        path_multihost(g, tmp, counts, record)
         path_pipeline(g, args.seed, tmp, counts, errs)
         kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                     "replaces": REPLACES[name],

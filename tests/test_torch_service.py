@@ -265,11 +265,12 @@ class TestManager:
         assert warmed["a/m1"]["warmed"]
         mgr.shutdown()
 
-    def test_sharded_and_multihost_not_ported(self, tmp_path, monkeypatch,
-                                              rng):
-        """Sharded stores are ported: sharded=True and VECTOR_DB_SHARDED=1
-        make ShardedVectorStores that answer as an unsharded store does.
-        Multi-host serving is not: VECTOR_DB_COORDINATOR still raises."""
+    def test_sharded_and_multihost_manager(self, tmp_path, monkeypatch,
+                                           rng):
+        """sharded=True and VECTOR_DB_SHARDED=1 make ShardedVectorStores
+        that answer as an unsharded store does. Under VECTOR_DB_COORDINATOR
+        the manager has the collective watchdog on (its timeout from
+        VECTOR_DB_COLLECTIVE_TIMEOUT_S, 120 s by default), unlatched."""
         from tpu_vector_db_torch.parallel import ShardedVectorStore
         x = rng.standard_normal((300, 16)).astype(np.float32)
         q = rng.standard_normal((5, 16)).astype(np.float32)
@@ -292,9 +293,16 @@ class TestManager:
             mgr.shutdown()
         plain.shutdown()
         monkeypatch.delenv("VECTOR_DB_SHARDED")
+        assert not plain._multihost
         monkeypatch.setenv("VECTOR_DB_COORDINATOR", "localhost:1234")
-        with pytest.raises(NotImplementedError, match="VECTOR_DB_COORDINATOR"):
-            manager(tmp_path)
+        mgr = manager(tmp_path)
+        assert mgr._multihost and mgr._collective_timeout_s == 120.0
+        assert not mgr.peer_lost
+        mgr.shutdown()
+        monkeypatch.setenv("VECTOR_DB_COLLECTIVE_TIMEOUT_S", "7.5")
+        mgr = manager(tmp_path)
+        assert mgr._multihost and mgr._collective_timeout_s == 7.5
+        mgr.shutdown()
 
     def test_cuda_store_raises_without_card(self, tmp_path, monkeypatch):
         """A manager asked for the card makes no store where there is

@@ -16,12 +16,16 @@ The port of ``tpu_vector_db.api.app``: the app serves on ``device``
 ("cuda" unless the caller asks for the CPU, see ``core/runtime.py``),
 checks that the device exists when it is made and runs a probe on it at
 startup; a failed probe stops the startup. The error handler is the
-manager's. Multi-host serving is not ported: the manager refuses it.
+manager's. Under multi-host serving (``VECTOR_DB_COORDINATOR``,
+``VECTOR_DB_NUM_PROCESSES``, ``VECTOR_DB_PROCESS_ID``) the startup first
+joins the gloo process group, which must form, and a lost peer becomes a
+503 with ``"degraded": "peer_lost"``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 import uuid
 
@@ -37,6 +41,7 @@ from tpu_vector_db_torch.monitoring import get_registry, record_request
 from tpu_vector_db_torch.monitoring.health import HealthChecker
 from tpu_vector_db_torch.security.auth import auth_config, hash_api_key
 from tpu_vector_db_torch.store.config import StoreCapacityError
+from tpu_vector_db_torch.service.errors import PeerLostError
 from tpu_vector_db_torch.service.manager import VectorStoreManager
 from tpu_vector_db_torch.store.vector_store import resolve_device
 
@@ -44,6 +49,9 @@ logger = logging.getLogger(__name__)
 
 UNAUTH_PATHS = {"/", "/health", "/system/info", "/config",
                 "/vectors/health", "/monitoring/health"}
+# the least timeout of the multi-host process group: how long process 0
+# waits for the others to join, and how long a collective may wait
+GROUP_TIMEOUT_S = 120.0
 
 
 # --------------------------------------------------------------- middleware
@@ -138,12 +146,13 @@ async def error_middleware(request: web.Request, handler):
             {"error": f"not found: {exc}", "code": 404,
              "timestamp": time.time()},
             status=404)
-    except NotImplementedError as exc:
-        # a feature of the JAX server this port lacks yet (multi-host
-        # serving: parallel/'s multi-host bootstrap is not ported)
+    except PeerLostError as exc:
+        # multi-host peer death: a clean, bounded 503 instead of a hung
+        # collective
         return web.json_response(
-            {"error": str(exc), "code": 501, "timestamp": time.time()},
-            status=501)
+            {"error": str(exc), "code": 503, "timestamp": time.time(),
+             "degraded": "peer_lost"},
+            status=503)
     except Exception:  # noqa: BLE001 — last-resort boundary
         logger.exception("unhandled error on %s", request.path)
         # (degradation accounting happens once, in the outer tracking
@@ -244,9 +253,25 @@ def create_app(manager: VectorStoreManager | None = None,
 
 
 async def _on_startup(app: web.Application) -> None:
-    """Warmup: device probe + store warmup (reference main.py:64-106)."""
+    """Warmup: multi-host bootstrap, device probe, store warmup
+    (reference main.py:64-106)."""
     get_registry().start_sampler()
-    app["manager"].errors.install_shutdown_handlers()
+    manager = app["manager"]
+    manager.errors.install_shutdown_handlers()
+    # multi-host bootstrap, env-gated: VECTOR_DB_COORDINATOR (host:port of
+    # process 0) + VECTOR_DB_NUM_PROCESSES + VECTOR_DB_PROCESS_ID on every
+    # host. No try: a host that cannot join its group does not start. The
+    # group's own timeout is at least the watchdog's, so the watchdog
+    # trips first
+    coordinator = os.environ.get("VECTOR_DB_COORDINATOR")
+    if coordinator:
+        from tpu_vector_db_torch.parallel.mesh import bootstrap_distributed
+        bootstrap_distributed(
+            coordinator_address=coordinator,
+            num_processes=int(os.environ["VECTOR_DB_NUM_PROCESSES"]),
+            process_id=int(os.environ["VECTOR_DB_PROCESS_ID"]),
+            timeout_s=max(manager._collective_timeout_s,
+                          GROUP_TIMEOUT_S))
     # no try: a server whose device cannot run a matmul does not start
     dev = torch.device(app["device"])
     x = torch.ones((128, 128), device=dev)
@@ -256,7 +281,9 @@ async def _on_startup(app: web.Application) -> None:
     logger.info("device warm: %s (%s)", dev,
                 torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "host")
-    warmed = app["manager"].warmup_all_stores()
+    if coordinator and manager._sharded:
+        manager.mesh()   # a collective: every process makes it now
+    warmed = manager.warmup_all_stores()
     if warmed:
         logger.info("warmed %d stores", len(warmed))
     if auth_config.generated:

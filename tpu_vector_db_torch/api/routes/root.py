@@ -50,6 +50,14 @@ async def banner(request: web.Request) -> web.Response:
 
 async def health(request: web.Request) -> web.Response:
     import asyncio
+    if request.app["manager"].peer_lost:
+        # don't touch the worker pool: a stalled collective may hold one
+        # of its threads; report the degradation at once
+        return web.json_response(
+            {"status": "unhealthy", "peer_lost": True,
+             "timestamp": time.time(),
+             "error": "peer process lost; restart the serving group"},
+            status=503)
     # the device check blocks on the accelerator — keep it off the event
     # loop (the TTL cache inside run_all bounds how often it runs at all)
     loop = asyncio.get_running_loop()

@@ -11,7 +11,13 @@ lead device (``sharded_scan.merge_candidates``). The union of the local
 top-k lists holds the global top-k whenever each local search finds its
 shard's winners, so recall matches one graph's on the same data.
 
-``ann_sharded_graph.npz`` has the JAX file's layout.
+On a mesh that spans processes each process builds, extends and searches
+its own shards' subgraphs, and the merge ends in
+``sharded_scan.merge_across_processes``.
+
+``ann_sharded_graph.npz`` has the JAX file's layout; a process of a group
+writes its own shards' rows only and the layout (W, r, L) beside them,
+and a file of another layout is rebuilt.
 """
 
 from __future__ import annotations
@@ -27,9 +33,7 @@ import torch
 from tpu_vector_db_torch.index import native
 from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex, beam_search
 from tpu_vector_db_torch.parallel.mesh import Mesh, local_count
-from tpu_vector_db_torch.parallel.sharded_scan import (_to,
-                                                       gather_candidates,
-                                                       merge_candidates)
+from tpu_vector_db_torch.parallel.sharded_scan import _to, merge_shards
 from tpu_vector_db_torch.utils.fs import atomic_save_npz
 
 logger = logging.getLogger(__name__)
@@ -47,15 +51,18 @@ class ShardedBeamGraph:
         self.dim = dim
         self.metric = metric
         self.mesh = mesh
-        self.n_dev = mesh.size
+        self.n_dev = mesh.size      # this process's shards
+        self.first = mesh.first_shard
         self.M = int(M)
         self.R = 2 * int(M)
         self.ef_construction = int(ef_construction)
         self.alpha = float(alpha)
         self._graph_dev: list[torch.Tensor] | None = None  # (rows, R) a shard
         self._entries_dev: list[torch.Tensor] = []          # (E,) a shard
-        self._graphs_host: np.ndarray | None = None   # (cap, R) int32, local
-        self._keys_host: np.ndarray | None = None     # (cap, R) f32
+        # this process's shards' rows (all of cap on one process): host
+        # row s·rows + j is local row j of shard s, its ids local
+        self._graphs_host: np.ndarray | None = None   # (L·rows, R) int32
+        self._keys_host: np.ndarray | None = None     # (L·rows, R) f32
         self._entry_lists: list[np.ndarray] = []      # local row ids
         self._rows_per_shard = 0
         self._count = 0
@@ -109,25 +116,25 @@ class ShardedBeamGraph:
         """host_vectors: RAW (count, d) f32 rows of the store; capacity:
         the sharded store's capacity (a multiple of the shard count)."""
         t0 = time.perf_counter()
-        if capacity % self.n_dev:
+        if capacity % self.mesh.n_shards:
             raise ValueError(f"capacity {capacity} does not split over "
-                             f"{self.n_dev} shards")
-        rows = capacity // self.n_dev
-        graphs = np.full((capacity, self.R), -1, np.int32)
-        keys = np.full((capacity, self.R), -np.inf, np.float32)
+                             f"{self.mesh.n_shards} shards")
+        rows = capacity // self.mesh.n_shards
+        graphs = np.full((rows * self.n_dev, self.R), -1, np.int32)
+        keys = np.full((rows * self.n_dev, self.R), -np.inf, np.float32)
 
         def build_shard(s: int) -> np.ndarray:
             """Shard s's subgraph into the host arrays; its entries."""
-            lo = s * rows
-            local_n = local_count(count, rows, s)
+            lo, at = (self.first + s) * rows, s * rows
+            local_n = local_count(count, rows, self.first + s)
             if local_n == 0:
                 return np.empty((0,), np.int32)
             sub = BeamGraphIndex(dim=self.dim, metric=self.metric, M=self.M,
                                  ef_construction=self.ef_construction,
                                  alpha=self.alpha, device="cpu")
             sub.build_cpu(host_vectors[lo: lo + local_n], local_n)
-            graphs[lo: lo + local_n] = sub._graph[:local_n]
-            keys[lo: lo + local_n] = sub._edge_keys[:local_n]
+            graphs[at: at + local_n] = sub._graph[:local_n]
+            keys[at: at + local_n] = sub._edge_keys[:local_n]
             return sub._entries.copy()
 
         # the native builds release the interpreter lock: one thread a shard
@@ -155,22 +162,23 @@ class ShardedBeamGraph:
                 f"add must continue from {self._count}, got {old_count}")
         rows = self._rows_per_shard
         touched: list[np.ndarray] = []
-        for s in range(old_count // rows, (new_count - 1) // rows + 1):
-            lo = s * rows
-            local_old = local_count(old_count, rows, s)
-            local_n = local_count(new_count, rows, s)
-            if local_n <= local_old:
+        for shard in range(old_count // rows, (new_count - 1) // rows + 1):
+            s = shard - self.first
+            lo, at = shard * rows, s * rows
+            local_old = local_count(old_count, rows, shard)
+            local_n = local_count(new_count, rows, shard)
+            if local_n <= local_old or not 0 <= s < self.n_dev:
                 continue
             g, k, _ = native.extend_graph(
                 self._prepare(host_vectors[lo: lo + local_n]), local_old,
-                self._graphs_host[lo: lo + local_old],
-                self._keys_host[lo: lo + local_old],
+                self._graphs_host[at: at + local_old],
+                self._keys_host[at: at + local_old],
                 self.metric, self.R, self.ef_construction, self.alpha,
                 entry_count=self._entry_target(local_n))
-            old_g = self._graphs_host[lo: lo + local_n].copy()
-            self._graphs_host[lo: lo + local_n] = g
-            self._keys_host[lo: lo + local_n] = k
-            touched.append(np.nonzero((g != old_g).any(axis=1))[0] + lo)
+            old_g = self._graphs_host[at: at + local_n].copy()
+            self._graphs_host[at: at + local_n] = g
+            self._keys_host[at: at + local_n] = k
+            touched.append(np.nonzero((g != old_g).any(axis=1))[0] + at)
             # entries are LOCAL row ids
             tgt = min(self._entry_target(local_n), local_n)
             self._entry_lists[s] = np.unique(
@@ -211,10 +219,8 @@ class ShardedBeamGraph:
                 sqnorms=sqnorms[s] if sqnorms else None)
             keys.append(k_s)
             ids.append(i_s)
-        offsets = [s * rows for s in range(self.n_dev)]
-        return merge_candidates(
-            *gather_candidates(keys, ids, offsets, self.mesh.lead), k,
-            empty_id=-1)
+        offsets = [(self.first + s) * rows for s in range(self.n_dev)]
+        return merge_shards(keys, ids, offsets, k, self.mesh)
 
     # ----------------------------------------------------------- persistence
 
@@ -225,28 +231,34 @@ class ShardedBeamGraph:
         entries = np.full((self.n_dev, e_max), -1, np.int32)
         for s, e in enumerate(self._entry_lists):
             entries[s, : len(e)] = e
+        extra = ({"layout": np.array(self.mesh.layout, np.int64)}
+                 if self.mesh.multiprocess else {})
         atomic_save_npz(
             Path(directory) / self.SHARDED_GRAPH_FILE,
             graphs=self._graphs_host, keys=self._keys_host, entries=entries,
-            meta=np.array([self.n_dev, self._rows_per_shard, self._count,
-                           self.M, self.ef_construction, self.dim],
-                          np.int64))
+            meta=np.array([self.mesh.n_shards, self._rows_per_shard,
+                           self._count, self.M, self.ef_construction,
+                           self.dim], np.int64), **extra)
 
     def load(self, directory, capacity: int) -> bool:
         """Open ``ann_sharded_graph.npz`` when it was written for this many
-        shards of this size; False (rebuild) otherwise."""
+        shards of this size, by a process of this layout; False (rebuild)
+        otherwise."""
         path = Path(directory) / self.SHARDED_GRAPH_FILE
         if not path.exists():
             return False
         try:
             with np.load(path) as z:
                 n_dev, rows, count, m, _efc, dim = (int(v) for v in z["meta"])
-                if (n_dev != self.n_dev or dim != self.dim or m != self.M
-                        or capacity // self.n_dev != rows
-                        or z["graphs"].shape[0] != capacity):
+                layout = (tuple(int(v) for v in z["layout"])
+                          if "layout" in z.files else (1, 0, n_dev))
+                if (n_dev != self.mesh.n_shards or dim != self.dim
+                        or m != self.M or capacity // n_dev != rows
+                        or z["graphs"].shape[0] != rows * self.n_dev
+                        or layout != self.mesh.layout):
                     logger.info("sharded graph at %s was written for %d "
-                                "shards of %d rows; rebuilding", path,
-                                n_dev, rows)
+                                "shards of %d rows, layout %s; rebuilding",
+                                path, n_dev, rows, layout)
                     return False
                 self._graphs_host = z["graphs"]
                 self._keys_host = z["keys"]
@@ -263,6 +275,6 @@ class ShardedBeamGraph:
 
     def get_stats(self) -> dict:
         return {"type": "sharded_beam_graph", "nodes": self._count,
-                "shards": self.n_dev, "M": self.M, "R": self.R,
+                "shards": self.mesh.n_shards, "M": self.M, "R": self.R,
                 "ef_construction": self.ef_construction,
                 "build_time_s": round(self.build_time_s, 3)}

@@ -3,11 +3,14 @@ k·P merge.
 
 Counterpart of ``tpu_vector_db/parallel/sharded_ivf.py``: each shard of
 a sharded store holds a LOCAL ``index/ivf.py::IVFIndex`` over its rows
-(seed = the shard's number), mirrored on its shard's device by the
-index's own ``_ensure_device``; a query probes ``nprobe`` buckets on
+(seed = the shard's global number), mirrored on its shard's device by
+the index's own ``_ensure_device``; a query probes ``nprobe`` buckets on
 every shard (``index/ivf.py::_select_and_probe``), and the shards' top-k
 lists merge once on the lead device (``sharded_scan.merge_candidates``),
-the sharded flat scan's pattern.
+the sharded flat scan's pattern. On a mesh that spans processes each
+process holds its own shards' indexes, and the merge ends in
+``sharded_scan.merge_across_processes``: a W x L group trains and
+answers as one process of P = W·L shards does.
 
 * Bucket mode (f32/bf16 stores): each shard's probe is
   ``ops/ivf_scan.ivf_probe_topk``, the hand-written probe kernel on a
@@ -26,7 +29,9 @@ store's own shard tensors, so a full probe scores exactly the rows the
 flat scan scores. The shards are probed one after another from Python,
 so each keeps its own bucket count: the JAX module pads every shard to
 one count for its stacked ``shard_map`` arrays, which has no counterpart
-here. ``ann_sharded_ivf.npz`` has the JAX file's layout.
+here. ``ann_sharded_ivf.npz`` has the JAX file's layout; a process of
+a group writes its own shards only (keys by global shard number) and the
+layout (W, r, L) beside them, and a file of another layout is rebuilt.
 """
 
 from __future__ import annotations
@@ -42,9 +47,7 @@ from tpu_vector_db_torch.index.ivf import (IVFIndex, _next_pow2,
                                            _select_and_probe)
 from tpu_vector_db_torch.ops.ivf_scan import MAX_IVF_KERNEL_K
 from tpu_vector_db_torch.parallel.mesh import Mesh, local_count
-from tpu_vector_db_torch.parallel.sharded_scan import (_to,
-                                                       gather_candidates,
-                                                       merge_candidates)
+from tpu_vector_db_torch.parallel.sharded_scan import _to, merge_shards
 from tpu_vector_db_torch.utils.fs import atomic_save_npz
 
 logger = logging.getLogger(__name__)
@@ -70,7 +73,8 @@ class ShardedIVF:
         self.dim = dim
         self.metric = metric
         self.mesh = mesh
-        self.n_dev = mesh.size
+        self.n_dev = mesh.size      # this process's shards
+        self.first = mesh.first_shard
         self.nprobe = int(nprobe)
         self.n_clusters = n_clusters
         self.bucket_rows = bucket_rows
@@ -88,7 +92,9 @@ class ShardedIVF:
 
     @property
     def built(self) -> bool:
-        return any(sub.built for sub in self._subs)
+        """Built over a live row: at least global shard 0's index is (on
+        a mesh that spans processes, maybe on another process)."""
+        return bool(self._subs) and self._count > 0
 
     @property
     def size(self) -> int:
@@ -136,8 +142,8 @@ class ShardedIVF:
             max(_next_pow2(int(per_shard / max(c, 1) * 1.3)), 256), 8192)
         self._subs = []
         for s in range(self.n_dev):
-            local_n = local_count(count, rows, s)
-            sub = self._sub(s, min(c, max(local_n, 1)))
+            local_n = local_count(count, rows, self.first + s)
+            sub = self._sub(self.first + s, min(c, max(local_n, 1)))
             if local_n > 0:
                 sub.build(db[s], local_n, scales=_part(scales, s))
             self._subs.append(sub)
@@ -163,15 +169,16 @@ class ShardedIVF:
                 f"add must continue from {self._count}, got {old_count}")
         rows = self._rows_per_shard
         trained = []
-        for s in range(old_count // rows, (new_count - 1) // rows + 1):
-            local_old = local_count(old_count, rows, s)
-            local_n = local_count(new_count, rows, s)
-            if local_n <= local_old:
+        for g in range(old_count // rows, (new_count - 1) // rows + 1):
+            s = g - self.first
+            local_old = local_count(old_count, rows, g)
+            local_n = local_count(new_count, rows, g)
+            if local_n <= local_old or not 0 <= s < self.n_dev:
                 continue
             sub = self._subs[s]
             if not sub.built:
                 sub.n_clusters = self.n_clusters
-                trained.append(s)
+                trained.append(g)
             sub.add(db[s], local_old, local_n, _part(sqnorms, s),
                     _part(scales, s))
         self._count = new_count
@@ -214,10 +221,15 @@ class ShardedIVF:
                 _part(scales, s), p, self.metric, k, layout)
             keys.append(k_s)
             ids.append(i_s)
-            offsets.append(s * self._rows_per_shard)
-        return merge_candidates(
-            *gather_candidates(keys, ids, offsets, self.mesh.lead), k,
-            empty_id=-1)
+            offsets.append((self.first + s) * self._rows_per_shard)
+        if not keys:   # no built shard here: -inf keys join the merge
+            lead = self.mesh.lead
+            keys = [torch.full((queries.shape[0], k), float("-inf"),
+                               device=lead)]
+            ids = [torch.full((queries.shape[0], k), -1, dtype=torch.int32,
+                              device=lead)]
+            offsets = [0]
+        return merge_shards(keys, ids, offsets, k, self.mesh)
 
     # ----------------------------------------------------------- persistence
 
@@ -228,9 +240,11 @@ class ShardedIVF:
         if not self.built:
             return
         payload = {"meta": np.array(
-            [self.n_dev, self._rows_per_shard, self._count, self._bc,
-             self.dim], np.int64)}
-        for s, sub in enumerate(self._subs):
+            [self.mesh.n_shards, self._rows_per_shard, self._count,
+             self._bc, self.dim], np.int64)}
+        if self.mesh.multiprocess:
+            payload["layout"] = np.array(self.mesh.layout, np.int64)
+        for s, sub in enumerate(self._subs, start=self.first):
             payload[f"built_{s}"] = np.array([int(sub.built)])
             if sub.built:
                 payload[f"cents_{s}"] = sub._centroids
@@ -242,22 +256,26 @@ class ShardedIVF:
 
     def load(self, directory, db: list, sqnorms: list | None = None) -> bool:
         """Open ``ann_sharded_ivf.npz`` when it was written for this many
-        shards of this size; False (rebuild) otherwise."""
+        shards of this size, by a process of this layout; False (rebuild)
+        otherwise."""
         path = Path(directory) / self.SHARDED_IVF_FILE
         if not path.exists():
             return False
         try:
             with np.load(path) as z:
                 n_dev, rows, count, bc, dim = (int(v) for v in z["meta"])
-                if (n_dev != self.n_dev or dim != self.dim
-                        or rows != db[0].shape[0]):
+                layout = (tuple(int(v) for v in z["layout"])
+                          if "layout" in z.files else (1, 0, n_dev))
+                if (n_dev != self.mesh.n_shards or dim != self.dim
+                        or rows != db[0].shape[0]
+                        or layout != self.mesh.layout):
                     logger.info("sharded IVF at %s was written for %d "
-                                "shards of %d rows; rebuilding", path,
-                                n_dev, rows)
+                                "shards of %d rows, layout %s; rebuilding",
+                                path, n_dev, rows, layout)
                     return False
                 self._bc = bc
                 subs = []
-                for s in range(self.n_dev):
+                for s in range(self.first, self.first + self.n_dev):
                     sub = self._sub(s)
                     if int(z[f"built_{s}"][0]):
                         sub._centroids = z[f"cents_{s}"]
@@ -282,7 +300,7 @@ class ShardedIVF:
         live = sum(int((s._ids >= 0).sum()) for s in built)
         slots = sum(s._ids.size for s in built)
         return {"type": "sharded_ivf", "nodes": self._count,
-                "shards": self.n_dev, "nprobe": self.nprobe,
+                "shards": self.mesh.n_shards, "nprobe": self.nprobe,
                 "buckets_per_shard": self.n_buckets,
                 "bucket_rows": self._bc,
                 "fill_ratio": round(live / max(slots, 1), 3),

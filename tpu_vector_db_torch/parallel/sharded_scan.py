@@ -18,6 +18,15 @@ gives over the shards' winners gathered in shard order. Nothing waits on
 the host between the shards: the launches queue on their devices'
 streams and the copies to the lead device do not block.
 
+A mesh that spans processes (``mesh.Mesh.multiprocess``) merges twice:
+this process's shards on its lead device, then
+``merge_across_processes``: one gloo all-gather of every process's
+(Q, k) winners, in rank order, and the same merge once more on every
+process. The order is total, so the two merges equal one merge over all
+P shards, and every process returns the same answer. Every process runs
+the same collectives in the same order, with the same shapes: a process
+whose shards hold no live row sends -inf keys.
+
 Queries are PREPARED as ``flat_topk`` takes them (cosine: unit rows,
 padded to the stored width); the JAX function normalizes them itself.
 Keys follow the port's kernels' scoring rules, the single-device store's
@@ -70,30 +79,70 @@ def merge_candidates(keys: torch.Tensor, ids: torch.Tensor, k: int,
                              torch.full_like(idx, empty_id))
 
 
+def merge_across_processes(keys: torch.Tensor, ids: torch.Tensor, k: int,
+                           mesh: Mesh, empty_id: int = -1):
+    """The global top-k of every process's (Q, k) winners (keys f32,
+    global ids, -1 wherever the key is -inf): one copy to the host (the
+    keys viewed as int32 beside the ids), one gloo all-gather, the (Q,
+    k·W) candidates in rank order back on this process's lead device and
+    ``merge_candidates`` once more. Every process of the group must call
+    it with the same shapes."""
+    import torch.distributed as dist
+    k_in = keys.shape[1]
+    packed = torch.cat([keys.float().view(torch.int32),
+                        ids.to(torch.int32)], dim=1).cpu()
+    parts = [torch.empty_like(packed) for _ in range(mesh.process_count)]
+    dist.all_gather(parts, packed)
+    lead = mesh.lead
+    all_keys = torch.cat([p[:, :k_in] for p in parts], dim=1)
+    all_ids = torch.cat([p[:, k_in:] for p in parts], dim=1)
+    return merge_candidates(all_keys.view(torch.float32).to(lead),
+                            all_ids.to(lead), k, empty_id)
+
+
+def merge_shards(keys: list, ids: list, offsets: list[int], k: int,
+                 mesh: Mesh, empty_id: int = -1):
+    """The global top-k of this process's shards' (Q, k) lists (local ids,
+    ``offsets`` their shards' first global rows): merged on the lead
+    device, then across the processes of a mesh that spans them."""
+    cand = gather_candidates(keys, ids, offsets, mesh.lead)
+    if mesh.multiprocess:
+        return merge_across_processes(*merge_candidates(*cand, k), k, mesh,
+                                      empty_id)
+    return merge_candidates(*cand, k, empty_id)
+
+
 def sharded_flat_topk(queries, db, count: int, k: int,
                       metric: str = "cosine", db_sqnorms=None,
-                      filter_mask=None, db_scales=None):
+                      filter_mask=None, db_scales=None,
+                      mesh: Mesh | None = None):
     """``flat_topk`` over rows split into equal shards: ``db`` and the
     per-row inputs are lists, one tensor a shard on its device (rows of
     shard s are global rows ``[s·R, (s+1)·R)``, R its length); ``count``
     is the global live-row count. Returns (keys (Q, k), global ids
     (Q, k)) on the first shard's device; slots past the live rows hold
-    -inf and id 0, as ``flat_topk``'s do."""
+    -inf and id 0, as ``flat_topk``'s do. With a ``mesh`` that spans
+    processes, ``db`` holds this process's shards, global shards
+    ``mesh.first_shard`` on, and the answer is the whole group's."""
     rows = db[0].shape[0]
     lead = db[0].device
     n = len(db)
+    first = mesh.first_shard if mesh is not None else 0
     sq = db_sqnorms or [None] * n
     mask = filter_mask or [None] * n
     scales = db_scales or [None] * n
     keys, ids = [], []
     for s in range(n):
         k_s, i_s = flat_topk(_to(queries, db[s].device), db[s],
-                             local_count(count, rows, s), k, metric,
+                             local_count(count, rows, first + s), k, metric,
                              sq[s], mask[s], scales[s])
         keys.append(k_s)
         ids.append(i_s)
-    cand = gather_candidates(keys, ids, [s * rows for s in range(n)], lead)
-    return merge_candidates(*cand, k, empty_id=0)
+    offsets = [(first + s) * rows for s in range(n)]
+    if mesh is not None:
+        return merge_shards(keys, ids, offsets, k, mesh, empty_id=0)
+    return merge_candidates(*gather_candidates(keys, ids, offsets, lead), k,
+                            empty_id=0)
 
 
 def make_sharded_query_fn(mesh: Mesh, k: int, metric: str = "cosine",
@@ -104,7 +153,8 @@ def make_sharded_query_fn(mesh: Mesh, k: int, metric: str = "cosine",
     (keys, global ids), and the mesh's device count.
 
     - queries: (Q, d_pad) prepared, on any device;
-    - db: one (R, d_pad) tensor a shard of the mesh, on its device (int4:
+    - db: one (R, d_pad) tensor a shard of the mesh (of this process's
+      shards, on a mesh that spans processes), on its device (int4:
       (R, d_pad//2) uint8-packed rows with scales), as ``shard_rows``
       places them;
     - count: the global live-row count;
@@ -122,7 +172,7 @@ def make_sharded_query_fn(mesh: Mesh, k: int, metric: str = "cosine",
         mask = next(it) if with_filter else None
         scales = next(it) if with_scales else None
         return sharded_flat_topk(queries, db, count, k, metric, sq, mask,
-                                 scales)
+                                 scales, mesh=mesh)
 
     return fn, n_dev
 

@@ -20,6 +20,13 @@ one k·P merge. This is BASELINE.md config #5's store (10M x 128).
 * A store written by either package, sharded or not, opens in the other
   and at another P (its sharded index sidecar is served at the P it was
   written for, and rebuilt at another).
+* On a mesh that spans processes (multi-host serving) each process
+  uploads only its own shards' rows: the rows of the other processes'
+  shards stay in the host buffer. Every mutation reaches every process
+  in lockstep, so the host state (rows, metadata, tombstones, count,
+  capacity) is the same everywhere, and every process persists the whole
+  store in the same files. A query's collectives are
+  ``sharded_scan.merge_across_processes``'s.
 
 The JAX package's ``_CompiledFnCache`` has no counterpart: nothing is
 compiled per capacity or k here.
@@ -48,7 +55,8 @@ class ShardedVectorStore(TorchVectorStore):
         self.mesh = mesh if mesh is not None else make_device_mesh()
         if len(self.mesh.shape) != 1:
             raise ValueError("a sharded store takes a 1-D mesh")
-        self._n_dev = self.mesh.size
+        # the global shard count: capacity splits over every process's
+        self._n_dev = self.mesh.n_shards
         super().__init__(store_path, config, device=self.mesh.lead)
 
     @property
@@ -62,6 +70,11 @@ class ShardedVectorStore(TorchVectorStore):
         while cap < n:
             cap *= 2
         return ((cap + unit - 1) // unit) * unit
+
+    def _local(self, shard: int) -> int | None:
+        """This process's index of global shard ``shard``, or None."""
+        s = shard - self.mesh.first_shard
+        return s if 0 <= s < self.mesh.size else None
 
     def _check_device_budget(self, capacity: int) -> None:
         """Each device must hold its shards: cap/P rows a shard on it."""
@@ -88,16 +101,20 @@ class ShardedVectorStore(TorchVectorStore):
 
     def _write_rows(self, arr: np.ndarray, offset: int) -> None:
         """Prepare host rows and write them in place at ``offset``, each
-        part uploaded once to the shard whose range it falls in."""
+        part uploaded once to the shard whose range it falls in (parts of
+        another process's shards are not uploaded)."""
         rows = self._rows_per_shard
         stop = offset + arr.shape[0]
-        for s in range(offset // rows, -(-stop // rows)):
-            lo, hi = max(offset, s * rows), min(stop, (s + 1) * rows)
+        for g in range(offset // rows, -(-stop // rows)):
+            s = self._local(g)
+            if s is None:
+                continue
+            lo, hi = max(offset, g * rows), min(stop, (g + 1) * rows)
             x = torch.from_numpy(np.ascontiguousarray(
                 arr[lo - offset: hi - offset], np.float32)).to(
                 self.mesh.devices[s])
             block, scales = self._prepare_block(x)
-            a, b = lo - s * rows, hi - s * rows
+            a, b = lo - g * rows, hi - g * rows
             self._db[s][a:b] = block
             if self._scales is not None:
                 self._scales[s][a:b] = scales
@@ -108,12 +125,12 @@ class ShardedVectorStore(TorchVectorStore):
 
     def _filter_mask(self, host_mask: np.ndarray) -> list[torch.Tensor]:
         mask = torch.from_numpy(np.ascontiguousarray(host_mask, np.float32))
-        rows = self._rows_per_shard
-        return [mask[s * rows:(s + 1) * rows].to(dev)
+        rows, first = self._rows_per_shard, self.mesh.first_shard
+        return [mask[(first + s) * rows:(first + s + 1) * rows].to(dev)
                 for s, dev in enumerate(self.mesh.devices)]
 
     def _exact_topk(self, **scan_inputs):
-        return sharded_flat_topk(**scan_inputs)
+        return sharded_flat_topk(**scan_inputs, mesh=self.mesh)
 
     # ------------------------------------------------------------------ ANN
 

@@ -109,6 +109,18 @@ class ValidationError(VectorDBError):
     severity = ErrorSeverity.LOW
 
 
+class PeerLostError(VectorDBError):
+    """Multi-host serving: a cross-process collective failed or did not
+    complete within the watchdog window. The peer process is presumed
+    dead, and this node can no longer answer from the whole store (every
+    sharded query needs every process). The API maps this to a clean 503;
+    recovery is a restart of the serving group (a gloo group cannot
+    re-admit a process)."""
+
+    category = ErrorCategory.NETWORK
+    severity = ErrorSeverity.CRITICAL
+
+
 def classify_exception(exc: Exception) -> tuple[ErrorCategory, ErrorSeverity]:
     if isinstance(exc, VectorDBError):
         return exc.category, exc.severity

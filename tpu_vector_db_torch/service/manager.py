@@ -13,8 +13,12 @@ The port of ``tpu_vector_db.service.manager``: stores are
 a manager (and importing this module) touches no CUDA. ``sharded=True``
 (or ``VECTOR_DB_SHARDED=1``) makes ``parallel.ShardedVectorStore``s over
 ``make_device_mesh()``: every visible card for "cuda", one CPU shard for
-"cpu". Multi-host serving (``VECTOR_DB_COORDINATOR``) is not ported and
-raises ``NotImplementedError``.
+"cpu". Under multi-host serving (``VECTOR_DB_COORDINATOR``: the app
+joins the process group at startup) the sharded stores' mesh spans the
+processes, and every device call is bounded by the collective watchdog
+(``VECTOR_DB_COLLECTIVE_TIMEOUT_S``, default 120 s): a collective that
+fails or times out latches ``peer_lost``, the request becomes a
+``PeerLostError`` (503), and every later call fails fast.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from tpu_vector_db_torch.service.error_handler import (
     ErrorHandler, get_error_handler)
+from tpu_vector_db_torch.service.errors import PeerLostError
 from tpu_vector_db_torch.store.config import VectorStoreConfig
 from tpu_vector_db_torch.store.vector_store import TorchVectorStore
 
@@ -56,12 +61,8 @@ class VectorStoreManager:
             max_workers = int(os.environ.get("VDB_WORKERS", "4"))
         if sharded is None:
             sharded = os.environ.get("VECTOR_DB_SHARDED", "0") == "1"
-        if os.environ.get("VECTOR_DB_COORDINATOR"):
-            raise NotImplementedError(
-                "multi-host serving (VECTOR_DB_COORDINATOR) is not ported "
-                "to torch yet; it needs the multi-host bootstrap of "
-                "parallel/")
         self._sharded = sharded
+        self._mesh = None
         self.base_path = Path(base_path)
         self.device = device
         self._stores: dict[tuple[str, str], TorchVectorStore] = {}
@@ -70,6 +71,16 @@ class VectorStoreManager:
         self.executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="vdb-worker")
         self.errors = errors if errors is not None else get_error_handler()
+        # multi-host serving watchdog: when a peer process dies, a
+        # collective fails (gloo: "Connection closed by peer") or, with a
+        # stalled peer, waits; the survivor must degrade with a bounded
+        # 503, not hang request threads. Active only under the
+        # multi-host bootstrap's env; the timeout must exceed the slowest
+        # legitimate device call
+        self._multihost = bool(os.environ.get("VECTOR_DB_COORDINATOR"))
+        self._collective_timeout_s = float(os.environ.get(
+            "VECTOR_DB_COLLECTIVE_TIMEOUT_S", "120"))
+        self.peer_lost = False
 
     # ------------------------------------------------------------ lifecycle
 
@@ -131,14 +142,22 @@ class VectorStoreManager:
                         return legacy
         return path
 
-    def _make_store(self, path: Path, config: VectorStoreConfig | None):
-        if self._sharded:
-            from tpu_vector_db_torch.parallel import (ShardedVectorStore,
-                                                      make_device_mesh)
-            mesh = make_device_mesh(
+    def mesh(self):
+        """The sharded stores' mesh, made once: every visible card for
+        "cuda", one CPU shard for "cpu"; under a process group it spans
+        the processes (its making is a collective, so the app makes it
+        at startup, on every process at once)."""
+        if self._mesh is None:
+            from tpu_vector_db_torch.parallel import make_device_mesh
+            self._mesh = make_device_mesh(
                 devices=["cpu"] if torch.device(self.device).type == "cpu"
                 else None)
-            return ShardedVectorStore(path, config, mesh=mesh)
+        return self._mesh
+
+    def _make_store(self, path: Path, config: VectorStoreConfig | None):
+        if self._sharded:
+            from tpu_vector_db_torch.parallel import ShardedVectorStore
+            return ShardedVectorStore(path, config, mesh=self.mesh())
         return TorchVectorStore(path, config, device=self.device)
 
     def store_exists(self, user_id: str, model_id: str) -> bool:
@@ -230,9 +249,50 @@ class VectorStoreManager:
     # ---------------------------------------------------------- async wraps
 
     async def _dispatch(self, fn):
-        """Run device work in the executor, off the event loop."""
-        return await asyncio.get_running_loop().run_in_executor(
-            self.executor, fn)
+        """Run device work in the executor, off the event loop. Under
+        multi-host serving the call is bounded by the collective watchdog:
+        a timeout or a failed collective latches peer_lost, the request
+        503s cleanly, and every later call fast-fails without touching
+        the device (a stalled collective's worker thread waits out the
+        group's own timeout; recovery is a serving-group restart)."""
+        if self._multihost and self.peer_lost:
+            raise PeerLostError(
+                "node degraded: a peer process was lost mid-serving; "
+                "restart the serving group")
+        fut = asyncio.get_running_loop().run_in_executor(self.executor, fn)
+        if not self._multihost:
+            return await fut
+        try:
+            return await asyncio.wait_for(
+                fut, timeout=self._collective_timeout_s)
+        except asyncio.TimeoutError:
+            self.peer_lost = True
+            logger.critical(
+                "distributed collective exceeded %.0fs; peer process "
+                "presumed dead; node degraded", self._collective_timeout_s)
+            raise PeerLostError(
+                f"distributed collective exceeded "
+                f"{self._collective_timeout_s:.0f}s: peer process presumed "
+                "dead; node degraded (restart the serving group)")
+        except Exception as exc:  # noqa: BLE001 — classify, then re-raise
+            # gloo FAILS the collective when a peer's connection closes
+            # ("Connection closed by peer"): the same death, seen sooner
+            if self._is_peer_failure(exc):
+                self.peer_lost = True
+                logger.critical("distributed collective failed (%s); peer "
+                                "process presumed dead; node degraded", exc)
+                raise PeerLostError(
+                    f"distributed collective failed ({exc}); node degraded "
+                    "(restart the serving group)") from exc
+            raise
+
+    @staticmethod
+    def _is_peer_failure(exc: Exception) -> bool:
+        text = repr(exc).lower()
+        return any(marker in text for marker in (
+            "connection closed by peer", "gloo", "coordination service",
+            "heartbeat", "connection reset", "all-gather failed",
+            "allgather failed", "collective"))
 
     async def add_vectors_async(self, user_id: str, model_id: str,
                                 vectors, metadata=None) -> dict:
