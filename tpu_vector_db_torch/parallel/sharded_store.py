@@ -8,7 +8,8 @@ sqnorms, int4 scales); filter and tombstone masks split the same way.
 The exact query is ``sharded_scan.sharded_flat_topk``: a scan a shard,
 one k·P merge. This is BASELINE.md config #5's store (10M x 128).
 
-* Appends write only into the shards whose range they touch.
+* Appends write only into the shards whose range they touch, in the
+  single-device store's upload blocks.
 * ``index_type="auto"`` resolves to IVF: a store is sharded because the
   corpus outgrew one device, where IVF wins the routing. The index is a
   ``ShardedIVF`` (a quantizer a shard) or, for ``beam_graph``, a
@@ -99,8 +100,9 @@ class ShardedVectorStore(TorchVectorStore):
         if self._count:
             self._write_rows(self._host_buf[: self._count], 0)
 
-    def _write_rows(self, arr: np.ndarray, offset: int) -> None:
-        """Prepare host rows and write them in place at ``offset``, each
+    def _write_block(self, arr: np.ndarray, offset: int) -> None:
+        """Prepare one upload block of host rows (``_write_rows`` splits
+        the rows into blocks) and write it in place at ``offset``, each
         part uploaded once to the shard whose range it falls in (parts of
         another process's shards are not uploaded)."""
         rows = self._rows_per_shard

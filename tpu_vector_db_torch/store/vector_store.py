@@ -5,7 +5,10 @@ Counterpart of ``tpu_vector_db/store/vector_store.py::TPUVectorStore``:
 * the device matrix is CAPACITY-DOUBLED and preallocated, so appends
   write rows in place by slice assignment (the JAX package donates the
   buffer to ``dynamic_update_slice`` instead); the capacity rule is the
-  same, so ``get_stats()["device_capacity"]`` matches;
+  same, so ``get_stats()["device_capacity"]`` matches; host rows go up
+  in blocks of at most ``UPLOAD_BLOCK_BYTES`` of f32 (the JAX store
+  uploads them in one piece), so a store that grows, compacts or reopens
+  at 16M x 768 needs no 48 GiB f32 copy on the card;
 * for cosine the device copy is normalized at add time; for euclidean
   the row squared-norms are kept beside it; the canonical float32 rows
   live on the host for persistence and rerank;
@@ -67,6 +70,26 @@ logger = logging.getLogger(__name__)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8, "int4": torch.uint8}
+
+# the most float32 bytes of host rows one device upload carries: a store
+# of 16M x 768 rows writes 192 blocks of 256 MiB, not one 48 GiB tensor
+# (and its prepared copy of the same size)
+UPLOAD_BLOCK_BYTES = 256 * 2**20
+
+
+def upload_blocks(n: int, d: int) -> list[tuple[int, int]]:
+    """[start, stop) ranges covering n rows of d float32 components, each
+    at most ``UPLOAD_BLOCK_BYTES`` (at least one row), in near-equal
+    sizes: a write of more than one block's rows gets blocks of at least
+    half a block, never a short tail. Every row is prepared alone, but on
+    the card torch's row reductions (the cosine norm, the euclidean
+    sqnorm) round a tensor of 2-15 rows of 768 otherwise than one of 16
+    or more (H100, torch 2.11), so only blocks that are never that short
+    keep every byte of a one-shot write."""
+    per = max(1, UPLOAD_BLOCK_BYTES // (4 * max(d, 1)))
+    parts = max(1, -(-n // per))
+    bounds = [n * i // parts for i in range(parts + 1)]
+    return [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
 
 
 def resolve_device(device) -> torch.device:
@@ -288,6 +311,14 @@ class TorchVectorStore:
         return x.to(self._dtype), None
 
     def _write_rows(self, arr: np.ndarray, offset: int) -> None:
+        """Write float32 host rows in place at ``offset`` in blocks of at
+        most ``UPLOAD_BLOCK_BYTES`` of f32 (``upload_blocks``), so an
+        upload never holds more than one block's f32 copy and its
+        prepared copy on the device, whatever the store's size."""
+        for start, stop in upload_blocks(arr.shape[0], arr.shape[1]):
+            self._write_block(arr[start:stop], offset + start)
+
+    def _write_block(self, arr: np.ndarray, offset: int) -> None:
         """Upload float32 host rows once, prepare them and write them in
         place at ``offset`` (rows, int4 scales, euclidean sqnorms)."""
         n = arr.shape[0]
@@ -1088,8 +1119,13 @@ class TorchVectorStore:
         if vectors is None or vectors.shape[0] == 0:
             return
         n = vectors.shape[0]
-        self._ensure_host_cap(n)
-        self._host_buf[:n] = vectors
+        # the loaded rows become the host buffer, grown in place (realloc)
+        # to the store's capacity: a reopen holds them once, not twice. A
+        # view (a torn write's committed prefix) is copied first.
+        buf = np.require(vectors, np.float32, ("C", "W", "O"))
+        buf.resize((self._capacity_for(n), self.config.dimension),
+                   refcheck=False)
+        self._host_buf, self._host_cap = buf, buf.shape[0]
         self._count = n
         self._metadata = metadata
         self._meta_index.rebuild(metadata)
