@@ -31,11 +31,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``bmm`` + ``topk`` (a composition used as a yardstick only); then the
    k <= 32 merge alone, held bit for bit against its plain version and
    timed, on the candidate shapes of the IVF and flat batch-1 paths (the
-   "merge" lines);
+   "merge" lines); then the ``rownorm`` hold: the store's row reductions
+   (``l2_normalize``, ``row_sqnorms``) give every row of tensors of 1-40
+   and 4096 rows (d 128, 384, 768, 1536) the bits it gets alone, beside
+   the row counts at which torch's own reductions do not;
 4. drives the store through ``create_vector_store(..., device="cuda")`` on
-   eight paths, the server on a ninth, the sharded store on a tenth,
-   multi-host serving on an eleventh, the embedding pipeline on a
-   twelfth and the capacity modes on a thirteenth,
+   eight paths, the server on a ninth, the seven examples
+   (``examples/torch_*.py``) on a tenth, the sharded store on an
+   eleventh, multi-host serving on a twelfth, the embedding pipeline on
+   a thirteenth and the capacity modes on a fourteenth,
    each with the launch counts set to 0 just before it and read just
    after: the main path, 1M x 768
    f32 cosine with metadata (batch 1 and 64, top-100, top-2000, filter,
@@ -51,8 +55,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``index_type="ivf"``); ``ivf_small``, 200K x
    384 bf16 with ``enable_ann=True``, flushed and reopened, the index
    served from its sidecar without a rebuild; ``graph``, the JAX
-   package's beam-graph regime (300K x 768 f32 cosine, 300 centres, unit
-   noise) with ``index_type="beam_graph"``: added in 3 x 100K (a build,
+   package's beam-graph regime (150K x 768 f32 cosine, the regime's 300K
+   halved for time; 300 centres, unit noise) with
+   ``index_type="beam_graph"``: added in 3 x 50K (a build,
    then two incremental extends), rebuilt by ``optimize()`` (its insert
    and refine passes timed), recall@10 of 1,000 held-out queries at ef
    100 and 200, batch 1/8/64 timed and profiled through the graph with no
@@ -64,9 +69,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    (compiled by g++ at first use) builds the graph, the card searches
    it; and ``serve``, the REST
    server (``tpu_vector_db_torch.api.app.create_app`` on the card, on
-   127.0.0.1 at a free port, spoken to over TCP with aiohttp): a 250K x
+   127.0.0.1 at a free port, spoken to over TCP with aiohttp): a 125K x
    768 f32 cosine store made by ``/admin/create_store`` and filled by 4
-   ``/v1/batch/upload`` calls of 62.5K rows (followed on their SSE
+   ``/v1/batch/upload`` calls of 31,250 rows (followed on their SSE
    streams), 50 sequential ``/vectors/query`` requests, 256 concurrent
    ones (64 in flight) that the query coalescer folds into batched scans
    (the launches equal to its flushes, every answer equal to the store's
@@ -76,7 +81,12 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``/system/info``, and the device's busy share of a burst of 64
    requests, and then (its own ``sdk`` launch line) the port's SDK: health,
    10 queries and a batch query equal to the store's own, and an
-   ``index_type="hnsw"`` graph store created, filled and queried; and
+   ``index_type="hnsw"`` graph store created, filled and queried;
+   ``examples``, each of ``examples/torch_*.py`` imported by its path
+   and run in this process (``main(device="cuda", root=...)``, at the
+   JAX examples' sizes), held to what it prints and asserts, its
+   launches counted around the call and every kernel it launched held
+   against its plain version on its own store; and
    ``sharded``, BASELINE config #5: 10M x 128 f32 cosine (rows N(0, I),
    metadata on every row, 10 x 1M adds) in a ``ShardedVectorStore`` over
    ``make_device_mesh()`` beside an unsharded store on the same rows
@@ -85,7 +95,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    reopened at P = 4 co-located shards (``["cuda:0"] * 4``: four scans
    and one k·P merge a call, the same answers), a sharded IVF (2M x 128
    in the ``ivf`` path's regime, P = 2, recall@10 at nprobe 32 and 64, a
-   full probe equal to the sharded flat scan), a sharded beam graph (100K
+   full probe equal to the sharded flat scan), a sharded beam graph (50K
    x 128 of the graph regime, P = 2, native build, a 10K extend, recall@10
    at ef 100, flush + reopen from ``ann_sharded_graph.npz``) and the
    manager with ``sharded=True``; its holds cover every shard and the
@@ -100,14 +110,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    REST traffic (50 b1 top-10 queries, batch_query b64 top-10 and
    top-100, a filter, a 1,000-row add whose rows find themselves, a
    10-row delete), every answer equal on both hosts and to the
-   single-process store's; rank 1 is killed, rank 0 answers 503
+   single-process store's; then the sharded path's IVF (2M x 128) and
+   graph (50K x 128) stores, written by one process, which each server
+   rebuilds its own shard's index of (timed as their load), b1 top-10 x
+   50 and b64 top-10 x 10 each, every answer equal on both hosts and to
+   an in-process P = 2 store whose index was built over the same rows,
+   recall@10 >= 0.95, no flat-scan launch, an IVF probe a call and two
+   merges a call on each host (its launch counts read over an added
+   ``/smoke/launches`` route), and each host's IVF kernel and shard merge
+   held against their plain versions on its own shard (``/smoke/hold``);
+   rank 1 is killed, rank 0 answers 503
    ``peer_lost`` (then fast, and on ``/health``), exits on SIGTERM and
    prints its launch counts; and ``pipeline``, the RAG pipeline on an
    encoder of BAAI/bge-base-en-v1.5's published shape (BERT, 12 x 768,
    vocab 30522,
    CLS pooling; random N(0, 0.02) weights and a vocab.txt made from the
    seed, written in HF layout under ``_smoke_tmp/models``, loaded by
-   ``create_encoder("hf:<dir>")``): ~100K chunks of synthetic documents
+   ``create_encoder("hf:<dir>")``): ~50K chunks of synthetic documents
    (``chunk_text(512, 50)``, ~100 tokens a chunk) indexed by
    ``PipelineFactory.create_rag_pipeline(..., device="cuda")`` and
    ``index_documents`` (batch 32, bf16), 200 ``retrieve_context(k=5)`` at
@@ -594,9 +613,13 @@ def ivf_yardstick(q, buckets, fills, sel, k: int):
 
 
 def hold_ivf(q, buckets, ids, fills, sel, k: int, what: dict,
-             timed: bool = False) -> dict:
+             timed: bool = False, merge: bool = False) -> dict:
     """The IVF kernel against its plain version on these inputs; with
-    ``timed``, kernel, plain and yardstick times and the bound."""
+    ``timed``, kernel, plain and yardstick times and the bound; with
+    ``merge``, also merge_small_k on the kernel's (Q, k) winners (what a
+    sharded index's shard merge takes) against its plain version, bit
+    for bit."""
+    import torch
     from tpu_vector_db_torch.ops import ivf_scan
     from tpu_vector_db_torch.ops.launches import LAUNCHES
     args = (q, buckets, ids, fills, sel, k)
@@ -612,6 +635,14 @@ def hold_ivf(q, buckets, ids, fills, sel, k: int, what: dict,
            "dtype": str(buckets.dtype).replace("torch.", ""),
            "max_abs_err": err, "key_tol": KEY_TOL, "keys_ok": keys_ok,
            "ids_ok": ids_ok, "launches": launches}
+    if merge:
+        mk, mi = ivf_scan.merge_small_k(keys, got_ids, k, -1)
+        wk, wi = ivf_scan.merge_small_k_plain(keys, got_ids, k, -1)
+        out["merge_small_k_bit_equal"] = (
+            torch.equal(mk.view(torch.int32), wk.view(torch.int32))
+            and torch.equal(mi, wi))
+        check(out["merge_small_k_bit_equal"], "merge_small_k disagrees "
+              f"with its plain version on the IVF winners ({what})")
     if timed:
         dtype = str(buckets.dtype).replace("torch.", "")
         out["kernel_ms"] = cuda_ms(lambda: ivf_scan.ivf_probe_topk(*args),
@@ -748,6 +779,41 @@ def phase_merge(seed: int) -> None:
               "device_ms_traces": dev["device_ms_traces"],
               "plain_ms": cuda_ms(lambda: ivf_scan.merge_small_k_plain(
                   kt, it, k, -1), 5)})
+
+
+ROWNORM_DIMS = (128, 384, 768, 1536)
+ROWNORM_COUNTS = tuple(range(1, 41)) + (4096,)
+
+
+def phase_rownorm(seed: int) -> None:
+    """The row reductions that prepare the store's rows and queries
+    (``ops/distance.py``: ``l2_normalize``, ``row_sqnorms``) give a row
+    the same bits in a tensor of any row count: for each d, every row of
+    tensors of 1-40 and 4096 rows against the same row alone. Beside
+    them, the row counts at which torch's own reductions (``vector_norm``,
+    ``sum``) round a row otherwise than alone, the fault they repair."""
+    import torch
+    from tpu_vector_db_torch.ops import distance as D
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    fns = {"l2_normalize": D.l2_normalize, "row_sqnorms": D.row_sqnorms,
+           "torch.linalg.vector_norm":
+               lambda t: torch.linalg.vector_norm(t, dim=-1),
+           "torch.sum": lambda t: torch.sum(t * t, dim=-1)}
+    for d in ROWNORM_DIMS:
+        x = torch.randn((max(ROWNORM_COUNTS), d), generator=g, device="cuda")
+        differ = {}
+        for name, fn in fns.items():
+            alone = torch.cat([fn(row[None]) for row in x]).view(torch.int32)
+            differ[name] = [n for n in ROWNORM_COUNTS if not torch.equal(
+                fn(x[:n]).view(torch.int32), alone[:n])]
+        emit({"phase": "hold", "path": "rownorm", "d": d,
+              "row_counts": "1-40 and 4096",
+              "counts_differing_from_one_row": differ,
+              "bit_equal": not differ["l2_normalize"]
+              and not differ["row_sqnorms"]})
+        check(not differ["l2_normalize"] and not differ["row_sqnorms"],
+              f"the row reductions depend on the row count at d={d}: "
+              f"{differ}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -1312,6 +1378,7 @@ def hold_index(store, path: str, queries: np.ndarray, k: int, errs: dict,
     ("built" here, or "reopened" from its files)."""
     from tpu_vector_db_torch.index.ivf import _select_buckets
     ann = store._ann
+    ann._ensure_device(store._db, store._sqnorms)  # current after an add
     dev = ann._dev
     nprobe = min(store.config.ann_params.get("nprobe") or ann.nprobe,
                  dev["ids"].shape[0])
@@ -1498,8 +1565,9 @@ def path_ivf_small(g, tmp: Path, counts: dict, errs: dict) -> None:
 
 # The JAX package's graph regime, "realistic spread"
 # (benchmarks/beam_ef_sweep.py:29-36,106): 300 centres drawn from N(0, I),
-# each row its centre plus 1.0 N(0, I); the cosine store normalizes them
-GRAPH_N, GRAPH_ADDS, GRAPH_CENTRES = 300_000, 3, 300
+# each row its centre plus 1.0 N(0, I); the cosine store normalizes them.
+# 150K rows (the regime's 300K halved for the script's time limit)
+GRAPH_N, GRAPH_ADDS, GRAPH_CENTRES = 150_000, 3, 300
 GRAPH_QUERIES, GRAPH_EXTRA = 1000, 10_000
 
 
@@ -1591,7 +1659,7 @@ def graph_recall(store, qs: np.ndarray, n: int, k: int = 10) -> float:
 
 
 def path_graph(g, seed: int, tmp: Path, counts: dict, errs: dict) -> dict:
-    """300K x 768 f32 cosine in the JAX package's graph regime with
+    """150K x 768 f32 cosine in the JAX package's graph regime with
     enable_ann=True, index_type="beam_graph" and the graph's defaults:
     added in 3 x 50K (a build, then two incremental extends), rebuilt by
     optimize(); recall@10 at ef 100 and 200, batch 1/8/64 timed and
@@ -1779,12 +1847,12 @@ def path_graph_native(g, tmp: Path, counts: dict, errs: dict) -> dict:
 
 # ------------------------------------------------------- the serve path
 
-# 250K rows: each 10K-row chunk of a `sync` upload rewrites the whole
+# 125K rows: each 10K-row chunk of a `sync` upload rewrites the whole
 # store, so its time grows as the rows squared (on the H100 1M rows took
-# 314-381 s, 500K 75-110 s); 250K keep the script inside its time limit
-# beside the capacity path
-SERVE_N = N // 4
-SERVE_PARTS = 4                 # /v1/batch/upload calls of 62.5K rows each
+# 314-381 s, 500K 75-110 s, 250K 27-35 s); 125K keep the script inside
+# its time limit beside the paths added since
+SERVE_N = N // 8
+SERVE_PARTS = 4                 # /v1/batch/upload calls of 31,250 rows
 SERVE_SEQUENTIAL = 50           # one client, one request at a time
 SERVE_BURST, SERVE_IN_FLIGHT = 256, 64
 SIM_TOL = 1e-5                  # f32 keys of two scan designs; 6 digits
@@ -2001,7 +2069,7 @@ def path_sdk(g, server, manager, who: dict, qs: np.ndarray,
 
 
 def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
-    """The port's REST server at 250K x 768 f32 cosine: the store made with
+    """The port's REST server at 125K x 768 f32 cosine: the store made with
     /admin/create_store, filled through /v1/batch/upload, queried over
     HTTP one at a time and in a concurrent burst that the coalescer folds
     into batched scans, and by /vectors/batch_query at top-10 and
@@ -2183,6 +2251,141 @@ def path_serve(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
     free_card()
 
 
+# ------------------------------------------------------- the examples path
+
+# examples/torch_<name>.py, each the port's version of examples/<name>.py
+EXAMPLES = ("quickstart", "ann_index", "ivf_index", "capacity_mode",
+            "rag_pipeline", "rest_and_sdk", "sharded_mesh")
+
+
+def load_example(name: str):
+    """examples/torch_<name>.py imported by its path."""
+    import importlib.util
+    path = REPO / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_asserts(name: str, out: dict) -> dict:
+    """What the example prints, held: the values it asserts or shows."""
+    if name == "quickstart":
+        got = {"count": out["count"],
+               "self_query_top1": out["self_query"][0][0],
+               "filtered_langs": sorted(set(out["filtered"][2])),
+               "batch_top1s": [r[0][0] for r in out["batch"]],
+               "reload_parity": out["parity"]}
+        ok = (got["count"] == 1000 and got["self_query_top1"] == 42
+              and got["filtered_langs"] == ["de"]
+              and got["batch_top1s"] == list(range(8)) and out["parity"])
+    elif name == "ann_index":
+        got = {"recall_vs_exact": out["recall"],
+               "graph_nodes": out["graph_nodes"],
+               "new_vector_reachable": out["reachable"]}
+        ok = (out["recall"] >= 0.95 and out["reachable"]
+              and out["graph_nodes"] == 21_000)
+    elif name == "ivf_index":
+        got = {"index_type": out["index_type"], "recall_vs_exact":
+               out["recall"], "count": out["count"]}
+        ok = (out["index_type"] == "ivf" and out["recall"] >= 0.95
+              and out["count"] == 50_500)
+    elif name == "capacity_mode":
+        got = {dtype: {"ivf_top1": r["ivf"][0][0],
+                       "ivf_score": r["ivf"][1][0],
+                       "exact_top1": r["exact"][0][0],
+                       "exact_score": r["exact"][1][0],
+                       "layout": r["layout"]} for dtype, r in out.items()}
+        ok = all(r["ivf_top1"] == r["exact_top1"] == 123
+                 and r["ivf_score"] > 0.95 and r["layout"] == "gather"
+                 for r in got.values())
+    elif name == "rag_pipeline":
+        got = {"chunks": len(out["chunks"]), "total_chars":
+               out["total_chars"], "top_chunk_names_hbm":
+               "HBM bandwidth" in out["chunks"][0]["text"]}
+        ok = got["chunks"] == 2 and got["top_chunk_names_hbm"]
+    elif name == "rest_and_sdk":
+        got = {"count": out["count"], "top_hit": out["top_hit"],
+               "batch_add": out["batch_add"],
+               "semantic_hits": out["semantic_hits"]}
+        ok = (out["count"] == 100 and out["top_hit"][0] == 7
+              and out["top_hit"][1] > 0.999
+              and out["batch_add"][0] == "completed"
+              and out["batch_add"][1]["added"] == 400
+              and out["semantic_hits"][:1] == [300])
+    else:
+        got = {"devices": len(out["devices"]),
+               "sharded_equals_flat": out["agree"]}
+        ok = out["agree"] and got["devices"] == 8
+    check(ok, f"example {name}: {got}")
+    return got
+
+
+def hold_example(name: str, out: dict, errs: dict) -> set[str]:
+    """Every kernel the example launches, held against its plain version
+    on the example's own store (rows, mask, index) at the example's
+    batch and k. Returns the kernels held."""
+    from tpu_vector_db_torch.ops.cuda_scan import kernel_name
+    if name == "capacity_mode":
+        stores = [r["store"] for r in out.values()]
+    else:
+        stores = [out["store"]]
+    held = set()
+    for store in stores:
+        rows = store._host_buf[:64]
+        if name == "sharded_mesh":
+            hold_sharded(store, "examples", out["queries"], 5, errs)
+            held |= {kernel_name(5), "merge_small_k"}
+            continue
+        if name == "ivf_index":
+            hold_index(store, "examples", out["queries"][:1], 10, errs)
+            held.add("ivf_kernel")
+        if name == "quickstart":
+            hold_store(store, "examples", rows[42:43], 3, errs,
+                       {"lang": "de"})
+            hold_store(store, "examples", rows[:8], 2, errs)
+        # the exact b1 query every example makes (its k: 3, 5 or 10),
+        # and the ANN stores' b64 sampled-recall self-check
+        hold_store(store, "examples", rows[:1], 10, errs)
+        hold_store(store, "examples", rows, 10, errs)
+        held.add(kernel_name(10))
+    return held
+
+
+def path_examples(tmp: Path, counts: dict, errs: dict) -> None:
+    """The seven examples (examples/torch_*.py) in this process on the
+    card, each ``main(device="cuda", root=...)`` at its own sizes: one
+    line each with its seconds, the launches around the call and what it
+    asserts; then every kernel an example launched held against its
+    plain version on that example's own store."""
+    import torch
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    free_card()
+    runs = {}
+    with counting("examples", ("scan_kernel", "ivf_kernel",
+                               "merge_small_k"), counts):
+        for name in EXAMPLES:
+            module = load_example(name)
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            out = module.main(device="cuda", root=tmp / "examples" / name)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            emit({"phase": "examples", "name": name,
+                  "file": f"examples/torch_{name}.py", "seconds": seconds,
+                  "launches": launched,
+                  "asserts": example_asserts(name, out)})
+            runs[name] = (out, launched)
+    for name, (out, launched) in runs.items():
+        held = hold_example(name, out, errs)
+        missing = {k for k, v in launched.items() if v} - held
+        check(not missing, f"example {name} launched {sorted(missing)} "
+              "with no hold")
+    runs.clear()
+    shutil.rmtree(tmp / "examples", ignore_errors=True)
+    free_card()
+
 
 # ------------------------------------------------------ the sharded path
 
@@ -2194,7 +2397,9 @@ SHARD_DELETED = SHARD_N // 1000               # 0.1% tombstoned
 SHARD_P = 4                                   # the reopen's co-located mesh
 # sharded IVF (the ivf path's regime) and sharded graph (the graph path's)
 SHARD_IVF_N, SHARD_IVF_PARTS, SHARD_IVF_P = 2_000_000, 4, 2
-SHARD_GRAPH_N, SHARD_GRAPH_EXTRA, SHARD_GRAPH_P = 100_000, 10_000, 2
+# the graph at 50K rows (100K until PR 13): each multihost server also
+# rebuilds its shard of it on one host thread, inside the 1,200 s
+SHARD_GRAPH_N, SHARD_GRAPH_EXTRA, SHARD_GRAPH_P = 50_000, 10_000, 2
 SHARD_MGR_N = 100_000
 SHARD_TOL = 1e-6               # ids equal, keys within: same kernel rules
 
@@ -2282,9 +2487,11 @@ def hold_sharded(store, path: str, queries: np.ndarray, k: int, errs: dict,
 
 
 def hold_sharded_ivf(store, path: str, queries: np.ndarray, k: int,
-                     errs: dict, timed: bool = False) -> dict:
+                     errs: dict, timed: bool = False,
+                     merge: bool = False) -> dict:
     """The IVF kernel against its plain version on every shard's buckets,
-    ids and fills, at the buckets its centroids select for these queries;
+    ids and fills, at the buckets its centroids select for these queries
+    (``merge``: and the shard merge on its winners, ``hold_ivf``);
     returns the first shard's line."""
     from tpu_vector_db_torch.index.ivf import _select_buckets
     ann = store._ann
@@ -2299,8 +2506,9 @@ def hold_sharded_ivf(store, path: str, queries: np.ndarray, k: int,
         sel = _select_buckets(q, dev["centroids"], dev["bucket_cluster"],
                               nprobe, store.metric, dev["c_sqnorms"])
         out = hold_ivf(q, dev["buckets"], dev["ids"], dev["fills"], sel, k,
-                       {"phase": "hold", "path": path, "shard": s},
-                       timed=timed and s == 0)
+                       {"phase": "hold", "path": path,
+                        "shard": ann.first + s},
+                       timed=timed and s == 0, merge=merge)
         errs["ivf_kernel"] = max(errs.get("ivf_kernel", 0.0),
                                  out["max_abs_err"])
         first = first or out
@@ -2379,6 +2587,38 @@ def p1_device(store, qs: np.ndarray, n: int, d: int, label: str) -> None:
               **agreement(dev["device_ms"], share)})
 
 
+def rebuilt_copy(src: Path, dst: Path, mesh):
+    """A ShardedVectorStore on ``mesh`` over ``src``'s files (hard links)
+    but its index sidecars: it builds its index anew from the rows, as a
+    server process whose layout differs from the writer's rebuilds its
+    shards'."""
+    import os
+    from tpu_vector_db_torch.parallel import ShardedVectorStore
+    dst.mkdir(parents=True)
+    for f in src.iterdir():
+        if f.is_file() and not f.name.startswith("ann_"):
+            os.link(f, dst / f.name)
+    return ShardedVectorStore(dst, mesh=mesh)
+
+
+def mh_reference(store, qs: np.ndarray, n: int) -> dict:
+    """What the multihost path holds a served sharded ANN store to: this
+    store's ANN-routed answers to ``MH_ANN_CASES`` (b1 queries one at a
+    time, then a batch) and the exact top-10 of its first n rows over
+    the batch's queries (the ground truth of recall)."""
+    import torch
+    answers = {label: [ann_routed(lambda: store.batch_query(
+        qs[i:i + 1], k=10))[0] for i in range(calls)] if q_n == 1
+        else ann_routed(lambda: store.batch_query(qs[:q_n], k=10))
+        for label, q_n, calls in MH_ANN_CASES}
+    db = torch.cat(store._db)[:n, :store.config.dimension]
+    (gt_vals, _), keys = exact_topk(db, qs[:MH_ANN_BATCH], 10, "cosine")
+    recall = tie_aware_recall(answers[f"b{MH_ANN_BATCH} top-10"], keys,
+                              gt_vals, 10)
+    return {"queries": qs, "answers": answers, "count": n,
+            "gt": (gt_vals.cpu(), keys.cpu()), "recall": recall}
+
+
 def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict,
                  record: dict) -> dict:
     """BASELINE config #5: 10M x 128 f32 cosine in a ShardedVectorStore
@@ -2386,11 +2626,14 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict,
     answering as an unsharded TorchVectorStore on the same rows does;
     flushed and reopened at P = 4 co-located shards (["cuda:0"] * 4);
     then a sharded IVF (2M x 128 clustered, P = 2), a sharded beam graph
-    (100K x 128 of the graph regime, P = 2, native build, extended by 10K,
+    (50K x 128 of the graph regime, P = 2, native build, extended by 10K,
     flushed and reopened from ann_sharded_graph.npz) and the manager with
     sharded=True. Returns the k·P merge's headline timings; ``record``
     gets the queries and the flushed store's answers that the multihost
-    path is held to (``MH_CASES``)."""
+    path is held to (``MH_CASES``), and for the sharded IVF (flushed) and
+    the sharded graph (its files copied after its build) the answers of
+    an in-process P = 2 store whose index was built over every row, as a
+    server process builds its shard's (``MH_ANN_CASES``)."""
     import torch
     from tpu_vector_db_torch import TorchVectorStore, VectorStoreConfig
     from tpu_vector_db_torch.parallel import (ShardedVectorStore,
@@ -2533,12 +2776,12 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict,
         # -- sharded IVF: 2M x 128 clustered at P = 2 on the card
         centres = torch.randn((IVF_CENTERS, d), generator=g, device="cuda")
         iqs = clustered_rows(g, centres, 64).cpu().numpy()
+        imesh = make_device_mesh(devices=["cuda:0"] * SHARD_IVF_P)
         ivf = ShardedVectorStore(
             tmp / "sharded_ivf", VectorStoreConfig(
-                dimension=d, persist_mode="off", enable_ann=True,
+                dimension=d, persist_mode="lazy", enable_ann=True,
                 initial_capacity=SHARD_IVF_N,
-                ann_params={"index_type": "ivf"}),
-            mesh=make_device_mesh(devices=["cuda:0"] * SHARD_IVF_P))
+                ann_params={"index_type": "ivf"}), mesh=imesh)
         part = SHARD_IVF_N // SHARD_IVF_PARTS
         ivf_add = []
         for _ in range(SHARD_IVF_PARTS):
@@ -2580,10 +2823,28 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict,
               "keys_ok": keys_ok, "ids_ok": ids_ok})
         check(keys_ok and ids_ok, "a full sharded IVF probe differs from "
               f"the sharded flat scan (key error {err})")
+        # for the multihost path: the store's files, and the answers of
+        # the same files opened here with the index rebuilt over all rows
+        t0 = time.perf_counter()
+        ivf.flush()
+        flush_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = rebuilt_copy(tmp / "sharded_ivf", tmp / "sharded_ivf_ref",
+                           imesh)
+        open_s = time.perf_counter() - t0
+        check(isinstance(ref._ann, ShardedIVF) and ref._ann.build_time_s
+              > 0 and ref._ann.size == SHARD_IVF_N, "the reference IVF "
+              "store did not rebuild its index")
+        record["ann"] = {"ivf": mh_reference(ref, iqs, SHARD_IVF_N)}
+        emit({"phase": "sharded", "case": "IVF flush + rebuilt reference",
+              "flush_seconds": flush_s, "open_and_rebuild_seconds": open_s,
+              "rebuild_seconds": ref._ann.build_time_s,
+              "recall_b64": record["ann"]["ivf"]["recall"]})
+        del ref
         keep["ivf"] = ivf
         del ivf, ann
 
-        # -- sharded beam graph: 100K x 128 of the graph regime at P = 2
+        # -- sharded beam graph: 50K x 128 of the graph regime at P = 2
         gcentres = torch.randn((GRAPH_CENTRES, d), generator=g,
                                device="cuda")
         gqs = spread_rows(g, gcentres, GRAPH_QUERIES).cpu().numpy()
@@ -2599,6 +2860,11 @@ def path_sharded(g, seed: int, tmp: Path, counts: dict, errs: dict,
         check(isinstance(graph._ann, ShardedBeamGraph)
               and graph._ann.size == SHARD_GRAPH_N,
               "the sharded graph was not built (degraded to the flat scan)")
+        # for the multihost path: the files as the build left them, and
+        # this store's answers (its graph built over every row)
+        graph.flush()
+        shutil.copytree(tmp / "sharded_graph", tmp / "sharded_graph_mh")
+        record["ann"]["graph"] = mh_reference(graph, gqs, SHARD_GRAPH_N)
         extra = spread_rows(g, gcentres, SHARD_GRAPH_EXTRA).cpu().numpy()
         builds = []
         with recording(ShardedBeamGraph, "build", builds):
@@ -2715,6 +2981,13 @@ MH_CASES = (("b1 top-10", 1, 10, MH_SEQUENTIAL, {}),
             ("b64 top-100", 64, 100, 1, {}),
             ("b1 1% filter top-10", 1, 10, 1,
              {"filter_metadata": MH_FILTER}))
+# the sharded path's two ANN stores, served beside config #5 (their
+# sidecars were written by one process: each server rebuilds its shard's
+# index); b1 queries 0..49 one at a time, then queries 0..63 as a batch
+MH_ANN_MODELS = {"ivf": "ivf", "graph": "graph"}
+MH_ANN_BATCH = 64
+MH_ANN_CASES = (("b1 top-10", 1, MH_SEQUENTIAL),
+                (f"b{MH_ANN_BATCH} top-10", MH_ANN_BATCH, 1))
 MH_UP_S, MH_LOAD_S, MH_CALL_S, MH_EXIT_S = 240, 600, 120, 300
 MH_DEAD_503_S, MH_FAST_FAIL_S = 45, 10
 # the cross-process merge timed alone by a pair of processes
@@ -2729,14 +3002,30 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_hold(store, queries: np.ndarray, k: int) -> dict:
+    """In a server process: its shard of a sharded IVF store, the IVF
+    kernel and the shard merge on the kernel's winners held against
+    their plain versions (``hold_sharded_ivf``); the line, with the
+    launches the hold made (they are no traffic)."""
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    before = dict(LAUNCHES)
+    line = hold_sharded_ivf(store, "multihost", queries, k, {}, merge=True)
+    return {**line, "hold_launches": {name: LAUNCHES[name] - before[name]
+                                      for name in LAUNCHES}}
+
+
 def multihost_worker(rank: int, coordinator: str, port: int,
                      data_dir: str) -> int:
     """``chip_smoke.py --multihost-worker RANK COORD HTTP_PORT DATA_DIR``:
     the port's REST server as process RANK of the serving group
     (``tpu_vector_db_torch.api.main``), sharded stores over the visible
     cards, the coalescer off (each process's batch window would form
-    other batches, and the collectives would not match). At a clean exit
-    (SIGTERM) it prints its launch counts as one JSON line."""
+    other batches, and the collectives would not match). Two routes are
+    added for the smoke run: GET ``/smoke/launches`` (this process's
+    launch counts) and POST ``/smoke/hold`` (``rank_hold`` on a model of
+    ``MH_USER``). At a clean exit (SIGTERM) it prints its launch counts
+    as one JSON line."""
+    import asyncio
     import os
     os.environ.update({
         "VECTOR_DB_COORDINATOR": coordinator,
@@ -2745,9 +3034,32 @@ def multihost_worker(rank: int, coordinator: str, port: int,
         "VDB_COALESCE_MS": "off", "VECTOR_DB_DATA_DIR": data_dir,
         "VECTOR_DB_API_KEY": MH_KEY, "VECTOR_DB_ADMIN_KEY": MH_ADMIN,
         "HOST": "127.0.0.1", "PORT": str(port)})
-    from tpu_vector_db_torch.api.main import main as serve
+    from aiohttp import web
+    import tpu_vector_db_torch.api.main as api_main
     from tpu_vector_db_torch.ops.launches import LAUNCHES
-    serve(["development"])
+
+    async def launches(request):
+        return web.json_response({"rank": rank, "launches": dict(LAUNCHES)})
+
+    async def hold(request):
+        body = await request.json()
+        store = request.app["manager"].get_store(
+            MH_USER, body["model_id"], create=False)
+        line = await asyncio.get_running_loop().run_in_executor(
+            None, rank_hold, store, np.asarray(body["queries"], np.float32),
+            int(body["k"]))
+        return web.json_response(line)
+
+    make_app = api_main.create_app
+
+    def create_app(**kw):
+        app = make_app(**kw)
+        app.router.add_get("/smoke/launches", launches)
+        app.router.add_post("/smoke/hold", hold)
+        return app
+
+    api_main.create_app = create_app
+    api_main.main(["development"])
     emit({"phase": "multihost_worker", "rank": rank,
           "launches": dict(LAUNCHES), "jax_loaded": "jax" in sys.modules})
     return 0
@@ -2883,12 +3195,90 @@ def mh_same(results: list[dict], want) -> bool:
                             atol=SHARD_TOL, rtol=0))
 
 
+def mh_launches(pool, ports: list[int]) -> list[dict]:
+    """Every server's launch counts (GET /smoke/launches), by rank."""
+    replies = list(pool.map(lambda p: mh_call(p, "/smoke/launches"),
+                            ports))
+    for rank, (status, body, _) in enumerate(replies):
+        check(status == 200 and body["rank"] == rank,
+              f"rank {rank}'s launch counts: HTTP {status} {body}")
+    return [body["launches"] for _, body, _ in replies]
+
+
+def mh_ann(pool, ports: list[int], tmp: Path, kind: str, model: str,
+           ref: dict, timed, held_b1, held_batch) -> dict:
+    """One sharded ANN store served by the pair. The first request opens
+    it on each server, which rebuilds its own shard's index
+    (``load_seconds``) and writes a sidecar of its layout and shard; then
+    b1 top-10 x ``MH_SEQUENTIAL`` and b64 top-10 x ``MH_BATCH_REPS`` in
+    lockstep (``timed``), every answer equal on both servers and to the
+    in-process P = 2 store's (``held_*``); recall@10 of a served batch;
+    on every rank no flat-scan launch, one IVF probe a call (IVF) and two
+    merges a call (its shard's and the cross-process one). Returns the
+    latencies."""
+    from tpu_vector_db_torch.parallel.sharded_ann import ShardedBeamGraph
+    from tpu_vector_db_torch.parallel.sharded_ivf import ShardedIVF
+    sidecar = {"ivf": ShardedIVF.SHARDED_IVF_FILE,
+               "graph": ShardedBeamGraph.SHARDED_GRAPH_FILE}[kind]
+    who = {"user_id": MH_USER, "model_id": model}
+    bodies, load_s = mh_both(pool, ports, f"/vectors/count?user_id="
+                             f"{MH_USER}&model_id={model}",
+                             timeout=MH_LOAD_S)
+    check(all(b["count"] == ref["count"] for b in bodies),
+          f"multihost {kind} counts {bodies}")
+    layouts = []
+    for r in range(MH_HOSTS):
+        with np.load(tmp / f"mh_host{r}" / "data" / MH_USER / model
+                     / sidecar) as z:
+            layouts.append(z["layout"].tolist())
+            shards = sorted(int(f[6:]) for f in z.files
+                            if f.startswith("built_"))
+        check(layouts[r] == [MH_HOSTS, r, 1]
+              and shards == ([r] if kind == "ivf" else []),
+              f"rank {r}'s {kind} sidecar: layout {layouts[r]}, shards "
+              f"{shards}")
+    qs = ref["queries"]
+    before = mh_launches(pool, ports)
+    lat = {f"{kind}_b1_top10": timed(
+        f"{kind} b1 top-10 x{MH_SEQUENTIAL}", "/vectors/query",
+        [{**who, "query": qs[i].tolist(), "k": 10}
+         for i in range(MH_SEQUENTIAL)], held_b1)}
+    batch = {**who, "queries": qs[:MH_ANN_BATCH].tolist(), "k": 10}
+    lat[f"{kind}_b{MH_ANN_BATCH}_top10"] = timed(
+        f"{kind} b{MH_ANN_BATCH} top-10", "/vectors/batch_query",
+        [batch] * MH_BATCH_REPS, held_batch)
+    bodies, _ = mh_both(pool, ports, "/vectors/batch_query", batch)
+    after = mh_launches(pool, ports)
+    # each timed case is warmed by one untimed call; then the recall batch
+    calls = (MH_SEQUENTIAL + 1) + (MH_BATCH_REPS + 1) + 1
+    want = {"scan_kernel": 0, "scan_kernel_bigk": 0,
+            "ivf_kernel": calls if kind == "ivf" else 0,
+            "merge_small_k": 2 * calls}
+    made = [{name: a[name] - b[name] for name in a}
+            for a, b in zip(after, before)]
+    check(all(m == want for m in made), f"{kind} calls launched {made} "
+          f"on the ranks, not {want} each")
+    gt_vals, keys = ref["gt"]
+    recall = tie_aware_recall(
+        [([r["index"] for r in res], None, None)
+         for res in bodies[0]["results"]], keys, gt_vals, 10)
+    emit({"phase": "multihost", "case": f"{kind} served by {MH_HOSTS} "
+          "processes", "model": model, "count": ref["count"],
+          "load_seconds": load_s, "sidecar_layouts": layouts,
+          "recall_at_10": recall, "in_process_recall_at_10": ref["recall"],
+          "launches_per_rank": made, "ranks_agree": True,
+          "equal_to_single_process": True})
+    check(recall >= 0.95, f"served {kind} recall@10 = {recall}")
+    return lat
+
+
 def path_multihost(g, tmp: Path, counts: dict, record: dict) -> dict:
     """BASELINE config #5 from two port server processes of one serving
     group over REST, each holding one shard of the sharded path's flushed
     10M x 128 store: lockstep traffic, answers held to the single-process
-    store's, then the peer-lost 503. Launches: rank 0's own, printed at
-    its clean exit."""
+    store's; then the sharded path's IVF and graph stores (``mh_ann``)
+    and each rank's holds on its own IVF shard; then the peer-lost 503.
+    Launches: rank 0's own, printed at its clean exit, less the hold's."""
     import os
     import signal
     from concurrent.futures import ThreadPoolExecutor as Pool
@@ -2918,13 +3308,16 @@ def path_multihost(g, tmp: Path, counts: dict, record: dict) -> dict:
 
     hosts = []
     coord, ports = f"127.0.0.1:{free_port()}", []
+    stores = {MH_MODEL: src, MH_ANN_MODELS["ivf"]: tmp / "sharded_ivf",
+              MH_ANN_MODELS["graph"]: tmp / "sharded_graph_mh"}
     for r in range(MH_HOSTS):
         root = tmp / f"mh_host{r}"
-        store_dir = root / "data" / MH_USER / MH_MODEL
-        store_dir.mkdir(parents=True)
-        for f in src.iterdir():    # no write reaches another's files
-            if f.is_file():
-                os.link(f, store_dir / f.name)
+        for model, files in stores.items():
+            store_dir = root / "data" / MH_USER / model
+            store_dir.mkdir(parents=True)
+            for f in files.iterdir():  # no write reaches another's files
+                if f.is_file():
+                    os.link(f, store_dir / f.name)
         ports.append(free_port())
     t_start = time.perf_counter()
     for r in range(MH_HOSTS):
@@ -2976,10 +3369,10 @@ def path_multihost(g, tmp: Path, counts: dict, record: dict) -> dict:
                   "equal_to_single_process": True})
             return r
 
-        def held(label):
+        def held(label, recorded=answers):
             """/vectors/query call i against the recorded answer i; a
             batch_query against the recorded batch."""
-            want = answers[label]
+            want = recorded[label]
 
             def check_each(i, body):
                 res = body["results"]
@@ -3025,6 +3418,30 @@ def path_multihost(g, tmp: Path, counts: dict, record: dict) -> dict:
         emit({"phase": "multihost", "case": f"add {MH_ADD} + delete "
               f"{MH_DELETE}", "add_seconds": add_s,
               "found_first": MH_ADD, "deleted_returned": 0})
+        # the sharded IVF and graph: each server rebuilds its shard's
+        # index at the first request, then lockstep ANN traffic
+        for kind, model in MH_ANN_MODELS.items():
+            ref = record["ann"][kind]
+            lat.update(mh_ann(pool, ports, tmp, kind, model, ref, timed,
+                              held("b1 top-10", ref["answers"]),
+                              held(f"b{MH_ANN_BATCH} top-10",
+                                   ref["answers"])))
+        after_ann = mh_launches(pool, ports)
+        for rank, made in enumerate(after_ann):
+            emit({"phase": "launches", "path": "multihost", "rank": rank,
+                  "at": "after the ANN cases, before the holds", **made})
+            for name in ("ivf_kernel", "merge_small_k"):
+                check(made[name] > 0, f"{name} was not launched on rank "
+                      f"{rank}")
+        iqs = record["ann"]["ivf"]["queries"][:8]
+        holds = [mh_call(p, "/smoke/hold", {
+            "model_id": MH_ANN_MODELS["ivf"], "queries": iqs.tolist(),
+            "k": 10}, timeout=MH_CALL_S) for p in ports]
+        for rank, (status, line, _) in enumerate(holds):
+            check(status == 200, f"rank {rank}'s hold: HTTP {status} "
+                  f"{line}")
+            emit({**line, "rank": rank})
+        hold_made = holds[0][1]["hold_launches"]
         # peer death: rank 1 killed, rank 0 degrades to a latched 503
         hosts[1].proc.send_signal(signal.SIGKILL)
         hosts[1].stop(30)
@@ -3061,10 +3478,13 @@ def path_multihost(g, tmp: Path, counts: dict, record: dict) -> dict:
             if h.proc.poll() is None:
                 h.proc.kill()
                 h.proc.wait(30)
-    counts["multihost"] = ends[0]["launches"]
+    # rank 0's launches at its exit, the hold's taken out
+    counts["multihost"] = {name: n - hold_made[name]
+                           for name, n in ends[0]["launches"].items()}
     emit({"phase": "launches", "path": "multihost", "rank": 0,
-          **counts["multihost"]})
-    for name in ("scan_kernel", "scan_kernel_bigk", "merge_small_k"):
+          "at": "exit, less the hold's launches", **counts["multihost"]})
+    for name in ("scan_kernel", "scan_kernel_bigk", "ivf_kernel",
+                 "merge_small_k"):
         check(counts["multihost"][name] > 0,
               f"{name} was not launched on path multihost")
     out = {"card": card_line(), "sigterm_exit_seconds": exit_s,
@@ -3100,7 +3520,8 @@ PIPE_MODELS = {
                   "layer_norm_eps": 1e-12, "hidden_act": "gelu",
                   "pad_token_id": 1}, "mean"),
 }
-PIPE_CHUNKS = 100_000           # chunks indexed (a BEIR corpus's size)
+PIPE_CHUNKS = 50_000            # chunks indexed (100K, a BEIR corpus's
+#                                 size, until PR 13: cut for the 1,200 s)
 PIPE_PROBES = 200               # retrieve_context(k=5) at batch 1
 PIPE_BIGK = 20                  # search_similar_texts(k=100)
 PIPE_HOLD_TEXTS = 1024          # texts of the dtype holds
@@ -3348,7 +3769,7 @@ def small_rag(name: str, ckpt: Path, texts: list[str], tmp: Path,
 
 
 def path_pipeline(g, seed: int, tmp: Path, counts: dict, errs: dict) -> None:
-    """The RAG pipeline on a bge-base-shaped encoder: 100K chunks indexed
+    """The RAG pipeline on a bge-base-shaped encoder: 50K chunks indexed
     by create_rag_pipeline + index_documents (batch 32, bf16), 200
     retrieve_context(k=5) at batch 1 (scan_kernel: it fetches 10) and 20
     search_similar_texts(k=100) (scan_kernel_bigk), each timed; encode
@@ -3455,9 +3876,11 @@ CAP_CHUNK = 2**20               # rows an add_vectors call
 CAP_HOST_SHARE = 0.6
 CAP_DISK_FACTOR = 1.3           # a flush needs 1.3 x rows x d x 4 bytes
 # halvings for the script's time limit, int4's first; int8's never
-# below CAP_MIN_INT8 rows
-CAP_TIME_HALVINGS = {"int4": 3, "int8": 0}
-CAP_MIN_INT8 = 8 * 2**20
+# below CAP_MIN_INT8 rows (one halving since the examples and the
+# multihost ANN stores joined the script: 8,388,608 -> 4,194,304 on a
+# 96 GiB host)
+CAP_TIME_HALVINGS = {"int4": 3, "int8": 1}
+CAP_MIN_INT8 = 4 * 2**20
 CAP_QUERIES = 64
 CAP_FILTER = {"g": 7}           # rows carry g = id % 100: a 1% filter
 CAP_DELETED = 1000              # one row in this many is deleted (0.1%)
@@ -4075,6 +4498,7 @@ def main() -> int:
         headline, errs = timed(phase_kernels, 768, args.seed)
         errs["ivf_kernel"] = timed(phase_ivf_kernels, args.seed)
         timed(phase_merge, args.seed)
+        timed(phase_rownorm, args.seed)
         shutil.rmtree(tmp, ignore_errors=True)
         g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         timed(path_main, g, args.seed, tmp, counts, errs)
@@ -4086,6 +4510,7 @@ def main() -> int:
         timed(path_graph, g, args.seed, tmp, counts, errs)
         timed(path_graph_native, g, tmp, counts, errs)
         timed(path_serve, g, args.seed, tmp, counts, errs)
+        timed(path_examples, tmp, counts, errs)
         headline["merge_small_k"] = timed(path_sharded, g, args.seed, tmp,
                                           counts, errs, record)
         timed(path_multihost, g, tmp, counts, record)

@@ -440,6 +440,56 @@ def test_two_process_server_rest(tmp_path):
             log[-3000:]
 
 
+def test_two_process_server_rest_ann(tmp_path):
+    """An ``ivf`` tenant (nprobe 8) and a ``beam_graph`` tenant (ef 64),
+    made by /admin/create_store and filled by two /vectors/add calls in
+    lockstep, served by the two servers (one CPU shard each): both answer
+    /vectors/batch_query alike, and as the single-process sharded store
+    (P = 2, the same config and adds) answers the same queries."""
+    from tpu_vector_db_torch.index import native
+    rng = np.random.default_rng(5)
+    d = 16
+    centres = rng.standard_normal((20, d)).astype(np.float32)
+    rows = (centres[rng.integers(0, 20, 4000)]
+            + 0.3 * rng.standard_normal((4000, d))).astype(np.float32)
+    qs = (centres[rng.integers(0, 20, 16)]
+          + 0.3 * rng.standard_normal((16, d))).astype(np.float32)
+    kinds = {"ivf": {"index_type": "ivf", "nprobe": 8}}
+    if native.available():      # the sharded graph's native builder
+        kinds["beam_graph"] = {"index_type": "beam_graph", "ef_search": 64,
+                               "M": 8, "ef_construction": 64}
+    torch.set_num_threads(1)
+    single = pmesh.make_device_mesh(devices=["cpu"] * 2)
+    pair = Pair([tmp_path / "proc0", tmp_path / "proc1"])
+    try:
+        for kind, params in kinds.items():
+            who = {"user_id": "mh", "model_id": kind}
+            both(pair.ports, "/admin/create_store",
+                 {**who, "dimension": d, "index_type": kind,
+                  "ann_params": params}, admin=True)
+            ref = ShardedVectorStore(tmp_path / f"single_{kind}",
+                                     VectorStoreConfig(
+                                         dimension=d, enable_ann=True,
+                                         persist_mode="off",
+                                         ann_params=params), mesh=single)
+            for part in (rows[:2000], rows[2000:]):
+                res = both(pair.ports, "/vectors/add",
+                           {**who, "vectors": part.tolist()})
+                ref.add_vectors(part)
+                assert all(r["total"] == len(ref) for r in res), res
+            got = both(pair.ports, "/vectors/batch_query",
+                       {**who, "queries": qs.tolist(), "k": 10})
+            assert got[0]["results"] == got[1]["results"], kind
+            want = ref.batch_query(qs, k=10)
+            ann_ids, _ = ref._ann_search(ref._prepare_queries(qs), 10)
+            for g, w, a in zip(got[0]["results"], want, ann_ids):
+                assert [r["index"] for r in g] == w[0] == a.tolist(), kind
+                np.testing.assert_allclose([r["similarity"] for r in g],
+                                           w[1], atol=1e-6, rtol=0)
+    finally:
+        pair.close()
+
+
 def test_jax_written_store_served_by_two_processes(tmp_path):
     """A store written by the JAX package's TPUVectorStore (with a deleted
     row) is opened by both port servers from their own data dirs (the

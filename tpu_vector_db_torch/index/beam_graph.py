@@ -55,6 +55,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpu_vector_db_torch.ops import distance as D
 from tpu_vector_db_torch.utils.fs import atomic_save_npz
 
 logger = logging.getLogger(__name__)
@@ -87,7 +88,7 @@ def _score_ids(queries, db, ids, metric: str, sqnorms):
     q = queries.float()
     cross = torch.bmm(rows, q.unsqueeze(-1)).squeeze(-1)      # (Q, C)
     if metric == "euclidean":
-        q_sq = torch.sum(q ** 2, -1, keepdim=True)
+        q_sq = D.row_sqnorms(q)[:, None]
         return -(q_sq - 2.0 * cross + sqnorms[safe])
     return cross
 

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_vector_db_torch.ops.distance import row_sqnorms
 from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.scan import scan_blocks
 from tpu_vector_db_torch.ops.topk import MERGE_SMALL_MAX_K, NEG_INF
@@ -213,7 +214,7 @@ def _check(queries, db, k, db_scales) -> int:
 def _finish(keys, ids, queries, metric):
     """Euclidean: subtract ||q||^2 from the finite keys only."""
     if metric == "euclidean":
-        q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
+        q_sq = row_sqnorms(queries)[:, None]
         keys = torch.where(keys > NEG_INF, keys - q_sq, keys)
     return keys, ids
 

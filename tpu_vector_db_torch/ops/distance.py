@@ -23,6 +23,11 @@ import torch.nn.functional as F
 
 EPS = 1e-8
 LANE = 128
+# torch's CUDA reduction over the last axis lays out its thread block by
+# the number of rows, and a tensor of fewer rows than this sums a row in
+# another order than one of this many or more: such a tensor is padded to
+# it, so a row's norm has the same bits in a batch of any size
+ROW_REDUCE_MIN_ROWS = 16
 
 
 def _round_up(x: int, m: int) -> int:
@@ -47,10 +52,35 @@ def pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
     return F.pad(x, (0, 0) * (x.ndim - 1) + (0, n_pad - n))
 
 
-def l2_normalize(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """Row-wise L2 normalization with an eps clamp."""
+def _row_reduce(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a reduction over the last axis, keepdim) of the float32
+    rows of ``x``. On the CPU it is ``fn(x)``; on a CUDA tensor the rows
+    are made contiguous and, fewer than ``ROW_REDUCE_MIN_ROWS``, padded
+    with zero rows to that many, so each row's result does not depend on
+    how many rows ``x`` holds."""
     xf = x.float()
-    norm = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+    if xf.device.type != "cuda":
+        return fn(xf)
+    rows = xf.reshape(-1, xf.shape[-1])
+    n = rows.shape[0]
+    if 0 < n < ROW_REDUCE_MIN_ROWS:
+        rows = F.pad(rows, (0, 0, 0, ROW_REDUCE_MIN_ROWS - n))
+    return fn(rows.contiguous())[:n].reshape(*xf.shape[:-1], 1)
+
+
+def row_sqnorms(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (...) float32 squared L2 norm of each row, the same
+    bits for a row in a batch of any size."""
+    return _row_reduce(lambda r: torch.sum(r * r, dim=-1, keepdim=True),
+                       x)[..., 0]
+
+
+def l2_normalize(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Row-wise L2 normalization with an eps clamp; a row gets the same
+    bits in a batch of any size."""
+    xf = x.float()
+    norm = _row_reduce(
+        lambda r: torch.linalg.vector_norm(r, dim=-1, keepdim=True), xf)
     return (xf / torch.clamp(norm, min=eps)).to(x.dtype)
 
 
@@ -77,11 +107,9 @@ def squared_l2_distances(queries: torch.Tensor, db: torch.Tensor,
                          ) -> torch.Tensor:
     """(Q,d) x (N,d) -> (Q,N) squared L2 via the matmul expansion
     ||q||^2 - 2<q,x> + ||x||^2, clamped at 0."""
-    qf = queries.float()
-    q_sq = torch.sum(qf * qf, dim=-1, keepdim=True)
+    q_sq = row_sqnorms(queries)[:, None]
     if db_sqnorms is None:
-        dbf = db.float()
-        db_sqnorms = torch.sum(dbf * dbf, dim=-1)
+        db_sqnorms = row_sqnorms(db)
     cross = _matmul_f32(queries, db)
     return torch.clamp(q_sq - 2.0 * cross + db_sqnorms[None, :], min=0.0)
 

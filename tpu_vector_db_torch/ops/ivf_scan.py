@@ -37,6 +37,7 @@ import threading
 
 import torch
 
+from tpu_vector_db_torch.ops.distance import row_sqnorms
 from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.topk import (MERGE_SMALL_MAX_K, NEG_INF,
                                           merge_topk, sort_by_key_then_id)
@@ -71,7 +72,7 @@ def _library() -> ctypes.CDLL:
 def _finish_euclidean(vals, idx, queries, metric):
     """Euclidean: subtract ||q||^2 from the finite keys only."""
     if metric == "euclidean":
-        q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
+        q_sq = row_sqnorms(queries)[:, None]
         vals = torch.where(vals > NEG_INF, vals - q_sq, vals)
     return vals, idx
 

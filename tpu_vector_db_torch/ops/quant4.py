@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_vector_db_torch.ops.distance import row_sqnorms
+
 
 def pack_int4(x: torch.Tensor, normalize: bool = True):
     """(n, d) f32 rows -> ((n, d//2) uint8 packed, (n,) f32 scales).
@@ -27,7 +29,7 @@ def pack_int4(x: torch.Tensor, normalize: bool = True):
     scale = torch.clamp(x.abs().amax(dim=1), min=1e-12) / 7.0
     q = torch.clamp(torch.round(x / scale[:, None]), -8, 7)
     if normalize:
-        norm = torch.sqrt(torch.sum(q * q, dim=1)) * scale
+        norm = torch.sqrt(row_sqnorms(q)) * scale
         scale = scale / torch.clamp(norm, min=1e-12)
     u = (q + 8.0).to(torch.uint8)
     lo = u[:, : d // 2]

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from tpu_vector_db_torch.index import native
+from tpu_vector_db_torch.ops import distance as D
 from tpu_vector_db_torch.ops.topk import to_host
 from tpu_vector_db_torch.parallel.mesh import make_device_mesh
 from tpu_vector_db_torch.parallel.sharded_scan import sharded_flat_topk
@@ -121,7 +122,7 @@ class ShardedVectorStore(TorchVectorStore):
             if self._scales is not None:
                 self._scales[s][a:b] = scales
             if self._sqnorms is not None:
-                self._sqnorms[s][a:b] = torch.sum(x * x, dim=-1)
+                self._sqnorms[s][a:b] = D.row_sqnorms(x)
 
     # ---------------------------------------------------------------- query
 

@@ -80,12 +80,9 @@ UPLOAD_BLOCK_BYTES = 256 * 2**20
 def upload_blocks(n: int, d: int) -> list[tuple[int, int]]:
     """[start, stop) ranges covering n rows of d float32 components, each
     at most ``UPLOAD_BLOCK_BYTES`` (at least one row), in near-equal
-    sizes: a write of more than one block's rows gets blocks of at least
-    half a block, never a short tail. Every row is prepared alone, but on
-    the card torch's row reductions (the cosine norm, the euclidean
-    sqnorm) round a tensor of 2-15 rows of 768 otherwise than one of 16
-    or more (H100, torch 2.11), so only blocks that are never that short
-    keep every byte of a one-shot write."""
+    sizes. Every row is prepared alone (``ops/distance.py``'s row
+    reductions give a row the same bits in a block of any size), so any
+    split writes the bytes of a one-shot write."""
     per = max(1, UPLOAD_BLOCK_BYTES // (4 * max(d, 1)))
     parts = max(1, -(-n // per))
     bounds = [n * i // parts for i in range(parts + 1)]
@@ -329,7 +326,7 @@ class TorchVectorStore:
         if self._scales is not None:
             self._scales[offset: offset + n] = scales
         if self._sqnorms is not None:
-            self._sqnorms[offset: offset + n] = torch.sum(x * x, dim=-1)
+            self._sqnorms[offset: offset + n] = D.row_sqnorms(x)
 
     def _reset_device(self, capacity: int) -> None:
         """(Re)build the device buffers from host state at a new capacity."""
