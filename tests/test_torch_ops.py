@@ -26,7 +26,6 @@ from tpu_vector_db.utils.validation import (
 
 from tpu_vector_db_torch.ops import distance as TD
 from tpu_vector_db_torch.ops import quant4 as TQ
-from tpu_vector_db_torch.ops.monitor import PerformanceMonitor
 from tpu_vector_db_torch.ops.scan import flat_scan_topk
 from tpu_vector_db_torch.ops.topk import merge_topk, top_k, topk_with_mask
 from tpu_vector_db_torch.store.config import (StoreCapacityError,
@@ -218,23 +217,6 @@ def test_flat_scan_topk(metric, dtype):
     np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=tol)
     assert (gi.numpy() == np.asarray(wi)).mean() > 0.95
     assert np.all(mask[gi.numpy()]) and np.all(gi.numpy() < 4000)
-
-
-# -------------------------------------------------------------- monitor
-
-def test_performance_monitor():
-    mon = PerformanceMonitor()
-
-    @mon.timed("f")
-    def f(x):
-        return x * 2
-
-    assert torch.equal(f(torch.ones(3)), torch.full((3,), 2.0))
-    mon.record("g", 0.5)
-    stats = mon.get_stats()
-    assert stats["f"]["calls"] == 1 and stats["g"]["avg_time_ms"] == 500.0
-    mon.reset()
-    assert mon.get_stats() == {}
 
 
 # ---------------------------------------------------------------- utils

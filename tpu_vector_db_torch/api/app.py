@@ -37,7 +37,8 @@ from tpu_vector_db_torch.api.middleware.rate_limiting import (
     ProductionRateLimiter, classify_operation, classify_tier)
 from tpu_vector_db_torch.core.logging_config import request_context, setup_logging
 from tpu_vector_db_torch.core.runtime import setup_runtime
-from tpu_vector_db_torch.monitoring import get_registry, record_request
+from tpu_vector_db_torch.monitoring import (
+    get_registry, record_request, tracing)
 from tpu_vector_db_torch.monitoring.health import HealthChecker
 from tpu_vector_db_torch.security.auth import auth_config, hash_api_key
 from tpu_vector_db_torch.store.config import StoreCapacityError
@@ -70,7 +71,8 @@ async def request_tracking_middleware(request: web.Request, handler):
     status = 500
     response: web.StreamResponse | None = None
     try:
-        response = await handler(request)
+        with tracing.span("api.request", rid=req_id):
+            response = await handler(request)
         status = response.status
         return response
     finally:
@@ -82,7 +84,6 @@ async def request_tracking_middleware(request: web.Request, handler):
         deg = request.app["manager"].errors.degradation
         deg.record_request(failed=status >= 500)
         deg.maybe_evaluate()
-        request.app["request_stats"].record(dt)
         if response is not None and not response.prepared:
             response.headers["X-Request-ID"] = req_id
             response.headers["X-Response-Time"] = f"{dt * 1e3:.2f}ms"
@@ -188,22 +189,6 @@ async def cors_middleware(request: web.Request, handler):
     return response
 
 
-class RequestStats:
-    """Rolling request latency average (reference main.py:131-167)."""
-
-    def __init__(self) -> None:
-        self.total = 0
-        self.total_time = 0.0
-
-    def record(self, dt: float) -> None:
-        self.total += 1
-        self.total_time += dt
-
-    @property
-    def avg_ms(self) -> float:
-        return (self.total_time / self.total * 1e3) if self.total else 0.0
-
-
 # ---------------------------------------------------------------- assembly
 
 def create_app(manager: VectorStoreManager | None = None,
@@ -231,7 +216,6 @@ def create_app(manager: VectorStoreManager | None = None,
     app["coalescer"] = QueryCoalescer.from_env(app["manager"])
     app["rate_limiter"] = ProductionRateLimiter(redis_url)
     app["health_checker"] = HealthChecker(device)
-    app["request_stats"] = RequestStats()
     app["started_at"] = time.time()
     app["version"] = __version__
 

@@ -8,6 +8,7 @@ import torch
 from aiohttp import web
 from pydantic import BaseModel, ValidationError
 
+from tpu_vector_db_torch.monitoring import tracing
 from tpu_vector_db_torch.ops.distance import raw_score_to_similarity_distance
 from tpu_vector_db_torch.security.auth import verify_admin_key, verify_api_key
 
@@ -39,17 +40,18 @@ def require_admin_key(handler):
 
 
 async def parse_model(request: web.Request, model_cls: type[BaseModel]):
-    try:
-        payload = await request.json()
-    except Exception:  # noqa: BLE001
-        raise web.HTTPBadRequest(reason="invalid JSON body")
-    try:
-        return model_cls.model_validate(payload)
-    except ValidationError as exc:
-        raise web.HTTPUnprocessableEntity(
-            reason="; ".join(
-                f"{'.'.join(str(p) for p in e['loc'])}: {e['msg']}"
-                for e in exc.errors()))
+    with tracing.span("api.decode", host_only=True):
+        try:
+            payload = await request.json()
+        except Exception:  # noqa: BLE001
+            raise web.HTTPBadRequest(reason="invalid JSON body")
+        try:
+            return model_cls.model_validate(payload)
+        except ValidationError as exc:
+            raise web.HTTPUnprocessableEntity(
+                reason="; ".join(
+                    f"{'.'.join(str(p) for p in e['loc'])}: {e['msg']}"
+                    for e in exc.errors()))
 
 
 def format_results(indices, raw_scores, metadata, metric: str) -> list[dict]:

@@ -15,7 +15,7 @@ import torch
 from aiohttp import web
 
 from tpu_vector_db_torch.api.routes._helpers import require_api_key
-from tpu_vector_db_torch.ops.monitor import performance_monitor
+from tpu_vector_db_torch.monitoring import tracing
 
 
 def register(app: web.Application) -> None:
@@ -82,7 +82,7 @@ async def optimize(request: web.Request) -> web.Response:
 async def stats(request: web.Request) -> web.Response:
     user_id = request.query.get("user_id")
     model_id = request.query.get("model_id")
-    body = {"kernels": performance_monitor.get_stats()}
+    body = {"tracing": tracing.summary()}
     coalescer = request.app.get("coalescer")
     if coalescer is not None:
         body["coalescer"] = coalescer.get_stats()

@@ -2,11 +2,13 @@
 
 Parity with reference main.py:211-363. The port of
 ``tpu_vector_db.api.routes.root``: device facts come from torch, and
-``/debug/profile`` records a ``torch.profiler`` trace.
+``/debug/profile`` records a ``torch.profiler`` trace and the program's
+spans of the same period.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import platform
 import time
@@ -15,6 +17,7 @@ import torch
 from aiohttp import web
 
 from tpu_vector_db_torch.api.routes._helpers import accelerator
+from tpu_vector_db_torch.monitoring import get_registry, tracing
 
 
 def register(app: web.Application) -> None:
@@ -66,6 +69,7 @@ async def health(request: web.Request) -> web.Response:
         request.app["health_checker"].run_all)
     stats = request.app["manager"].get_stats()
     handler_health = request.app["manager"].errors.health_check()
+    http = get_registry().histogram("http_request_duration_seconds").snapshot()
     body = {
         "status": checks["status"],
         "timestamp": time.time(),
@@ -74,8 +78,9 @@ async def health(request: web.Request) -> web.Response:
         "stores": {"loaded": stats["loaded_stores"],
                    "total_vectors": stats["total_vectors"]},
         "requests": {
-            "total": request.app["request_stats"].total,
-            "avg_ms": round(request.app["request_stats"].avg_ms, 2),
+            "total": http["count"],
+            "avg_ms": round(http["sum"] / http["count"] * 1e3, 2)
+            if http["count"] else 0.0,
         },
         "resilience": {"score": handler_health["score"],
                        "status": handler_health["status"]},
@@ -131,7 +136,10 @@ async def debug_profile(request: web.Request) -> web.Response:
 
     The reference had no tracer at all (SURVEY.md §5 — wall-clock timers
     only); this writes a Chrome trace (host ops and, on a CUDA device, its
-    kernels) viewable in Perfetto or chrome://tracing. Body:
+    kernels) viewable in Perfetto or chrome://tracing, and beside it the
+    program's own spans of the profiled period (``monitoring/tracing.py``:
+    every thread's api, coalescer, manager, store and index stages) as a
+    second Chrome trace on the same time base. Body:
     {"duration_ms": 500, "trace_dir": "/tmp/vdb_trace"}.
     """
     from torch.profiler import ProfilerActivity, profile
@@ -148,24 +156,34 @@ async def debug_profile(request: web.Request) -> web.Response:
 
     def _trace():  # device-blocking: run on a worker, not the event loop
         x = torch.ones((1024, 1024), device=dev)
+        t0 = time.perf_counter_ns()
         with profile(activities=activities) as prof:
             deadline = time.time() + duration_s
             while time.time() < deadline:
                 x = x @ x * 1e-3
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
+        t1 = time.perf_counter_ns()
         os.makedirs(trace_dir, exist_ok=True)
-        path = os.path.join(trace_dir, f"trace_{time.time_ns()}.json")
+        stamp = time.time_ns()
+        path = os.path.join(trace_dir, f"trace_{stamp}.json")
         prof.export_chrome_trace(path)
-        return path
+        with open(path) as f:
+            base_ns = json.load(f).get("baseTimeNanoseconds", 0)
+        spans_path = os.path.join(trace_dir, f"spans_{stamp}.json")
+        n = tracing.export_chrome(spans_path, t0, t1, base_ns)
+        return path, spans_path, n
 
     import asyncio
-    path = await asyncio.get_running_loop().run_in_executor(
-        request.app["manager"].executor, _trace)
+    path, spans_path, n_spans = await asyncio.get_running_loop(
+        ).run_in_executor(request.app["manager"].executor, _trace)
     return web.json_response({"trace_dir": trace_dir,
                               "trace": path,
+                              "spans": spans_path,
+                              "span_count": n_spans,
                               "duration_s": duration_s,
-                              "view": "open <trace> in ui.perfetto.dev"})
+                              "view": "open <trace> and <spans> in "
+                                      "ui.perfetto.dev"})
 
 
 async def debug_device(request: web.Request) -> web.Response:

@@ -18,7 +18,8 @@ from tpu_vector_db_torch.api.models import (
     VectorDeleteRequest, VectorQueryRequest)
 from tpu_vector_db_torch.api.routes._helpers import (
     format_results, parse_model, require_api_key)
-from tpu_vector_db_torch.monitoring import record_vector_addition, record_vector_query
+from tpu_vector_db_torch.monitoring import (
+    record_vector_addition, record_vector_query, tracing)
 
 
 def register(app: web.Application) -> None:
@@ -85,12 +86,14 @@ async def query_vectors(request: web.Request) -> web.Response:
     dt = time.perf_counter() - t0
     record_vector_query(dt)
     store = manager.get_store(body.user_id, body.model_id, create=False)
-    return web.json_response({
-        "results": format_results(indices, scores, metadata, store.metric),
-        "query_time_ms": round(dt * 1e3, 3),
-        "store_count": len(store),
-        "metric": store.metric,
-    })
+    with tracing.span("api.encode", host_only=True):
+        return web.json_response({
+            "results": format_results(indices, scores, metadata,
+                                      store.metric),
+            "query_time_ms": round(dt * 1e3, 3),
+            "store_count": len(store),
+            "metric": store.metric,
+        })
 
 
 @require_api_key

@@ -1,5 +1,7 @@
 """Metrics + health (counterpart of reference monitoring/metrics.py — which
-was complete but never imported by the app; here it is wired into the API)."""
+was complete but never imported by the app; here it is wired into the API),
+and the tracer of the query path (``tracing``: spans and counters, on
+while a torch profiler runs)."""
 
 from tpu_vector_db_torch.monitoring.metrics import (  # noqa: F401
     Counter,

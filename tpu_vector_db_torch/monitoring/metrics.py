@@ -1,10 +1,11 @@
 """Metrics registry with Prometheus text exposition.
 
 Capability parity with reference monitoring/metrics.py:30-295 (Counter /
-Gauge / Histogram over bounded time series, pre-created HTTP / vector-op /
-cache / index / system / error metrics, a psutil sampler thread, Prometheus
-exposition, module-level convenience recorders) — and unlike the reference,
-this registry is actually attached to the serving app (SURVEY.md §2.1).
+Gauge values, a Histogram with a bounded series of recent observations
+for its percentiles, pre-created HTTP / vector-op / cache / index / system
+/ error metrics, a psutil sampler thread, Prometheus exposition,
+module-level convenience recorders) — and unlike the reference, this
+registry is actually attached to the serving app (SURVEY.md §2.1).
 """
 
 from __future__ import annotations
@@ -30,15 +31,6 @@ class _Metric:
         self.name = name
         self.description = description
         self._lock = threading.Lock()
-        self._points: deque[MetricPoint] = deque(maxlen=MAX_POINTS)
-
-    def _record_point(self, value: float) -> None:
-        self._points.append(MetricPoint(time.time(), value))
-
-    def recent(self, seconds: float = 60.0) -> list[MetricPoint]:
-        cutoff = time.time() - seconds
-        with self._lock:
-            return [p for p in self._points if p.timestamp >= cutoff]
 
 
 class Counter(_Metric):
@@ -49,7 +41,6 @@ class Counter(_Metric):
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self._value += amount
-            self._record_point(self._value)
 
     @property
     def value(self) -> float:
@@ -70,12 +61,10 @@ class Gauge(_Metric):
     def set(self, value: float) -> None:
         with self._lock:
             self._value = value
-            self._record_point(value)
 
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self._value += amount
-            self._record_point(self._value)
 
     def dec(self, amount: float = 1.0) -> None:
         self.inc(-amount)
@@ -99,12 +88,14 @@ class Histogram(_Metric):
         self._counts = [0] * (len(self.buckets) + 1)
         self._sum = 0.0
         self._count = 0
+        # the recent observations ``percentile`` reads
+        self._points: deque[MetricPoint] = deque(maxlen=MAX_POINTS)
 
     def observe(self, value: float) -> None:
         with self._lock:
             self._sum += value
             self._count += 1
-            self._record_point(value)
+            self._points.append(MetricPoint(time.time(), value))
             for i, b in enumerate(self.buckets):
                 if value <= b:
                     self._counts[i] += 1
@@ -121,6 +112,11 @@ class Histogram(_Metric):
             return {"sum": self._sum, "count": self._count,
                     "buckets": dict(zip([*map(str, self.buckets), "+Inf"],
                                         cumulative))}
+
+    def recent(self, seconds: float = 60.0) -> list[MetricPoint]:
+        cutoff = time.time() - seconds
+        with self._lock:
+            return [p for p in self._points if p.timestamp >= cutoff]
 
     def percentile(self, q: float, window_s: float = 300.0) -> float:
         pts = sorted(p.value for p in self.recent(window_s))

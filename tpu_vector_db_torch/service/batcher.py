@@ -26,6 +26,8 @@ import os
 
 import numpy as np
 
+from tpu_vector_db_torch.monitoring import tracing
+
 logger = logging.getLogger(__name__)
 
 
@@ -53,6 +55,10 @@ class QueryCoalescer:
         # benchmark's evidence that concurrency actually reaches the
         # batched regime instead of degenerating to batch-1 flushes
         self.batch_size_hist: dict[int, int] = {}
+        # while tracing is on, by a waiter's future: its coalescer.query
+        # span, the coalescer.wait span its flush ends and the
+        # coalescer.resume span the flush opens
+        self._traced: dict[asyncio.Future, list] = {}
 
     @classmethod
     def from_env(cls, manager) -> "QueryCoalescer | None":
@@ -87,17 +93,36 @@ class QueryCoalescer:
             raise ValueError("query() takes one vector; use batch_query()")
         loop = asyncio.get_running_loop()
         key = (user_id, model_id, int(k), bool(use_ann), bool(rerank))
+        fut: asyncio.Future = loop.create_future()
+        if tracing.on():
+            return await self._query_traced(loop, key, arr.reshape(-1), fut)
+        self._join(loop, key, arr.reshape(-1), fut)
+        return await fut
+
+    def _join(self, loop, key: tuple, vec: np.ndarray,
+              fut: asyncio.Future) -> None:
         lane = self._lanes.get(key)
         if lane is None:
             lane = self._lanes[key] = _Lane()
-        fut: asyncio.Future = loop.create_future()
-        lane.items.append((arr.reshape(-1), fut))
+        lane.items.append((vec, fut))
         if len(lane.items) >= self.max_batch:
             self._detach_and_flush(key, lane)
         elif lane.timer is None:
             lane.timer = loop.call_later(
                 self.window_s, self._detach_and_flush, key, lane)
-        return await fut
+
+    async def _query_traced(self, loop, key: tuple, vec: np.ndarray,
+                            fut: asyncio.Future):
+        with tracing.span("coalescer.query", k=key[2]) as qspan:
+            spans = self._traced[fut] = [
+                qspan, tracing.start("coalescer.wait"), None]
+            self._join(loop, key, vec, fut)
+            try:
+                return await fut
+            finally:
+                del self._traced[fut]
+                if spans[2] is not None:
+                    spans[2].finish()
 
     def _detach_and_flush(self, key: tuple,
                           lane: _Lane) -> "asyncio.Task | None":
@@ -113,25 +138,37 @@ class QueryCoalescer:
     async def _run(self, key: tuple,
                    items: list[tuple[np.ndarray, asyncio.Future]]) -> None:
         user_id, model_id, k, use_ann, rerank = key
-        try:
-            arr = np.stack([v for v, _ in items])
-            results = await self.manager.batch_query_async(
-                user_id, model_id, arr, k=k, use_ann=use_ann, rerank=rerank)
-            self.batches += 1
-            bucket = 1
-            while bucket < len(items):
-                bucket *= 2
-            self.batch_size_hist[bucket] = \
-                self.batch_size_hist.get(bucket, 0) + 1
-            if len(items) > 1:
-                self.coalesced += len(items)
-            for (_, fut), res in zip(items, results):
-                if not fut.done():
-                    fut.set_result(res)
-        except Exception as exc:  # noqa: BLE001 — propagate to every waiter
-            for _, fut in items:
-                if not fut.done():
-                    fut.set_exception(exc)
+        traced = self._traced
+        with tracing.span("coalescer.flush", flush=True, k=k,
+                          size=len(items)) as flush:
+            for _, fut in items if traced else ():
+                spans = traced.get(fut)
+                if spans is not None and spans[1] is not None:
+                    spans[1].finish(flush=flush.flush)
+            try:
+                arr = np.stack([v for v, _ in items])
+                results = await self.manager.batch_query_async(
+                    user_id, model_id, arr, k=k, use_ann=use_ann,
+                    rerank=rerank)
+                self.batches += 1
+                bucket = 1
+                while bucket < len(items):
+                    bucket *= 2
+                self.batch_size_hist[bucket] = \
+                    self.batch_size_hist.get(bucket, 0) + 1
+                if len(items) > 1:
+                    self.coalesced += len(items)
+                for (_, fut), res in zip(items, results):
+                    if not fut.done():
+                        spans = traced.get(fut) if traced else None
+                        if spans is not None:
+                            spans[2] = tracing.start("coalescer.resume",
+                                                     parent=spans[0])
+                        fut.set_result(res)
+            except Exception as exc:  # noqa: BLE001 — to every waiter
+                for _, fut in items:
+                    if not fut.done():
+                        fut.set_exception(exc)
 
     async def aclose(self) -> None:
         """Flush every pending lane now (server shutdown): waiters get

@@ -33,6 +33,7 @@ from pathlib import Path
 
 import torch
 
+from tpu_vector_db_torch.monitoring import tracing
 from tpu_vector_db_torch.service.error_handler import (
     ErrorHandler, get_error_handler)
 from tpu_vector_db_torch.service.errors import PeerLostError
@@ -259,6 +260,10 @@ class VectorStoreManager:
             raise PeerLostError(
                 "node degraded: a peer process was lost mid-serving; "
                 "restart the serving group")
+        if tracing.on():
+            # the worker's spans join the caller's (contextvars do not
+            # cross run_in_executor by themselves)
+            fn = tracing.carry(fn, "manager.executor_wait")
         fut = asyncio.get_running_loop().run_in_executor(self.executor, fn)
         if not self._multihost:
             return await fut

@@ -55,8 +55,8 @@ from tpu_vector_db_torch.ops import distance as D
 from tpu_vector_db_torch.index import native
 from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex
 from tpu_vector_db_torch.index.ivf import IVFIndex
+from tpu_vector_db_torch.monitoring import tracing
 from tpu_vector_db_torch.ops.cuda_scan import flat_topk
-from tpu_vector_db_torch.ops.monitor import performance_monitor
 from tpu_vector_db_torch.ops.quant4 import quantize_unit_rows
 from tpu_vector_db_torch.ops.topk import NEG_INF, to_host
 from tpu_vector_db_torch.store import persistence
@@ -358,6 +358,7 @@ class TorchVectorStore:
 
     # ------------------------------------------------------------- mutation
 
+    @tracing.traced("store.add")
     def add_vectors(self, vectors, metadata: list[dict] | None = None) -> dict:
         """Append rows (+ metadata). Returns counts."""
         arr = validate_vector_shape(vectors, self.config.dimension)
@@ -367,7 +368,6 @@ class TorchVectorStore:
         if len(metadata) != n:
             raise ValueError(
                 f"metadata length {len(metadata)} != vectors {n}")
-        t_add = time.perf_counter()
         with self._lock, self._rw.write():
             new_count = self._count + n
             grow = self._db is None or new_count > self._cap
@@ -393,7 +393,6 @@ class TorchVectorStore:
         # which already covers the new rows
         if self.config.enable_ann:
             self._refresh_ann_tail()
-        performance_monitor.record("add_vectors", time.perf_counter() - t_add)
         return {"added": n, "total": self._count}
 
     def _refresh_ann_tail(self) -> None:
@@ -572,9 +571,11 @@ class TorchVectorStore:
                    filter_mask: torch.Tensor | None):
         """One scan launch and ONE device-to-host copy: keys viewed as
         int32 beside the ids. Returns host (keys f32, ids i32)."""
-        keys, idx = self._exact_topk(
-            k=k, **self._scan_inputs(queries, filter_mask))
-        keys, idx = to_host(keys, idx)
+        # the copy to the host waits for the scan: the span is synchronised
+        with tracing.span("store.scan", k=k):
+            keys, idx = self._exact_topk(
+                k=k, **self._scan_inputs(queries, filter_mask))
+            keys, idx = to_host(keys, idx)
         if self.config.storage_dtype == "int8":
             keys = keys * (1.0 / 127.0)  # undo the fixed quantizer scale
         return keys, idx
@@ -612,6 +613,7 @@ class TorchVectorStore:
         return self.batch_query(arr, k=k, filter_metadata=filter_metadata,
                                 use_ann=use_ann, rerank=rerank)[0]
 
+    @tracing.traced("store.batch_query")
     def batch_query(self, query_vectors, k: int = 10,
                     filter_metadata: dict | None = None, use_ann: bool = True,
                     rerank: bool = False):
@@ -635,6 +637,7 @@ class TorchVectorStore:
         if q_pad != n_q:
             arr = np.concatenate(
                 [arr, np.repeat(arr[:1], q_pad - n_q, axis=0)])
+        tracing.annotate("k", int(k))
         with self._rw.read():
             live_total = self._count - len(self._deleted)
             if live_total == 0:
@@ -678,6 +681,8 @@ class TorchVectorStore:
                     not high_batch_flat and not low_sel_filter and
                     self._ann is not None and not self._ann_stale and
                     self._count >= min_rows and not self._ann_low_recall):
+                tracing.annotate("route", "graph" if self._ann_kind
+                                 == "beam_graph" else self._ann_kind)
                 try:
                     out = self._ann_batch_query(
                         arr, k_engine, filter_metadata)[:n_q]
@@ -687,14 +692,13 @@ class TorchVectorStore:
                     logger.warning("ANN query failed; falling back to the "
                                    "exact scan", exc_info=True)
 
-            t0 = time.perf_counter()
+            tracing.annotate("route", "flat")
             mask = self._query_mask(filter_metadata, host_mask)
             keys, idx = self._flat_topk(arr, k_engine, mask)
-            performance_monitor.record("flat_scan_topk",
-                                       time.perf_counter() - t0)
-            out = [self._format_results(keys[i], idx[i], k_engine,
-                                        filter_metadata)
-                   for i in range(n_q)]
+            with tracing.span("store.format", host_only=True):
+                out = [self._format_results(keys[i], idx[i], k_engine,
+                                            filter_metadata)
+                       for i in range(n_q)]
             return (self._rerank_exact(arr, out, k_eff)
                     if rerank_active else out)
 
@@ -1001,28 +1005,31 @@ class TorchVectorStore:
         """One index search for the batch, then post-filtering of
         tombstones and metadata filters on the host."""
         fetch_k = self._post_filter_fetch_k(k, bool(filter_metadata))
-        labels, keys = self._ann_search(self._prepare_queries(arr), fetch_k)
+        queries = self._prepare_queries(arr)
+        with tracing.span("index.search", k=fetch_k):
+            labels, keys = self._ann_search(queries, fetch_k)
         out = []
-        for row_labels, row_keys in zip(labels, keys):
-            indices, scores, metas = [], [], []
-            for i, key in zip(row_labels, row_keys):
-                i = int(i)
-                if i < 0 or len(indices) >= k or i in self._deleted:
-                    continue
-                meta = self._metadata[i]
-                if filter_metadata and not metadata_matches(
-                        meta, filter_metadata):
-                    continue
-                if self.metric == "euclidean":
-                    raw = float(np.sqrt(max(-key, 0.0)))
-                elif self.metric == "cosine":
-                    raw = float(np.clip(key, -1.0, 1.0))
-                else:
-                    raw = float(key)
-                indices.append(i)
-                scores.append(raw)
-                metas.append(meta)
-            out.append((indices, scores, metas))
+        with tracing.span("store.format", host_only=True):
+            for row_labels, row_keys in zip(labels, keys):
+                indices, scores, metas = [], [], []
+                for i, key in zip(row_labels, row_keys):
+                    i = int(i)
+                    if i < 0 or len(indices) >= k or i in self._deleted:
+                        continue
+                    meta = self._metadata[i]
+                    if filter_metadata and not metadata_matches(
+                            meta, filter_metadata):
+                        continue
+                    if self.metric == "euclidean":
+                        raw = float(np.sqrt(max(-key, 0.0)))
+                    elif self.metric == "cosine":
+                        raw = float(np.clip(key, -1.0, 1.0))
+                    else:
+                        raw = float(key)
+                    indices.append(i)
+                    scores.append(raw)
+                    metas.append(meta)
+                out.append((indices, scores, metas))
         return out
 
     def _load_ann_sidecar(self, n: int) -> None:
