@@ -46,6 +46,7 @@ import math
 import shutil
 import threading
 import time
+from itertools import compress
 from pathlib import Path
 
 import numpy as np
@@ -121,7 +122,7 @@ class MetadataColumnIndex:
 
     Each metadata key becomes a uint64 hash column; a filter is a numpy
     equality AND across columns. Hash collisions are resolved by an exact
-    re-check of the returned top-k (``_format_results``)."""
+    re-check of the returned top-k (``_format_batch``)."""
 
     def __init__(self) -> None:
         self._columns: dict[str, np.ndarray] = {}
@@ -580,27 +581,58 @@ class TorchVectorStore:
             keys = keys * (1.0 / 127.0)  # undo the fixed quantizer scale
         return keys, idx
 
-    def _format_results(self, keys_row: np.ndarray, idx_row: np.ndarray,
-                        k: int, filter_metadata: dict | None = None):
-        indices, scores, metas = [], [], []
-        for key, i in zip(keys_row, idx_row):
-            if key == NEG_INF or len(indices) >= k:
-                continue
-            meta = self._metadata[int(i)]
-            # exact re-check: the filter mask is hash-based
-            if filter_metadata and not metadata_matches(meta, filter_metadata):
-                continue
+    def _format_batch(self, keys: np.ndarray, ids: np.ndarray, k: int,
+                      valid: np.ndarray, filter_metadata: dict | None):
+        """A batch's host (keys, ids) block as one (indices, raw_scores,
+        metadata) tuple a row: the entries ``valid`` keeps, in order, at
+        most k of them, each re-checked against ``filter_metadata`` when
+        one is given. Scores are converted a whole array at a time, in
+        the keys' dtype, so each is the Python float that ``np.clip`` /
+        ``np.sqrt`` of its one key would give (ops/distance.py's raw-score
+        convention)."""
+        with tracing.span("store.format", host_only=True):
             if self.metric == "euclidean":
-                raw = float(np.sqrt(max(-key, 0.0)))
+                # -key floored at 0 by a compare, not np.maximum: a key of
+                # exactly 0.0 keeps its distance of -0.0
+                scores = -keys
+                scores[scores < 0] = 0
+                np.sqrt(scores, out=scores)
             elif self.metric == "cosine":
                 # bf16 rounding can lift a unit self-similarity past 1
-                raw = float(np.clip(key, -1.0, 1.0))
+                scores = np.clip(keys, -1.0, 1.0)
             else:
-                raw = float(key)
-            indices.append(int(i))
-            scores.append(raw)
-            metas.append(meta)
-        return indices, scores, metas
+                scores = keys
+            metadata = self._metadata
+            full = valid.all(axis=1).tolist()
+            out, size, rechecked = [], 0, 0
+            for r, (row_ids, row_scores) in enumerate(
+                    zip(ids.tolist(), scores.tolist())):
+                if not full[r]:
+                    keep = valid[r].tolist()
+                    row_ids = list(compress(row_ids, keep))
+                    row_scores = list(compress(row_scores, keep))
+                if not filter_metadata:
+                    row_ids, row_scores = row_ids[:k], row_scores[:k]
+                    out.append((row_ids, row_scores,
+                                [metadata[i] for i in row_ids]))
+                    size += len(row_ids)
+                    continue
+                # exact re-check: the filter mask is hash-based
+                indices, kept, metas = [], [], []
+                for i, score in zip(row_ids, row_scores):
+                    if len(indices) >= k:
+                        break
+                    meta = metadata[i]
+                    rechecked += 1
+                    if metadata_matches(meta, filter_metadata):
+                        indices.append(i)
+                        kept.append(score)
+                        metas.append(meta)
+                out.append((indices, kept, metas))
+                size += len(indices)
+            tracing.annotate("size", size)
+            tracing.annotate("rechecked", rechecked)
+        return out
 
     def query(self, query_vector, k: int = 10,
               filter_metadata: dict | None = None, use_ann: bool = True,
@@ -695,10 +727,10 @@ class TorchVectorStore:
             tracing.annotate("route", "flat")
             mask = self._query_mask(filter_metadata, host_mask)
             keys, idx = self._flat_topk(arr, k_engine, mask)
-            with tracing.span("store.format", host_only=True):
-                out = [self._format_results(keys[i], idx[i], k_engine,
-                                            filter_metadata)
-                       for i in range(n_q)]
+            keys, idx = keys[:n_q], idx[:n_q]
+            # NaN keys stay valid, as NEG_INF alone marks an empty slot
+            out = self._format_batch(keys, idx, k_engine, keys != NEG_INF,
+                                     filter_metadata)
             return (self._rerank_exact(arr, out, k_eff)
                     if rerank_active else out)
 
@@ -1008,29 +1040,11 @@ class TorchVectorStore:
         queries = self._prepare_queries(arr)
         with tracing.span("index.search", k=fetch_k):
             labels, keys = self._ann_search(queries, fetch_k)
-        out = []
-        with tracing.span("store.format", host_only=True):
-            for row_labels, row_keys in zip(labels, keys):
-                indices, scores, metas = [], [], []
-                for i, key in zip(row_labels, row_keys):
-                    i = int(i)
-                    if i < 0 or len(indices) >= k or i in self._deleted:
-                        continue
-                    meta = self._metadata[i]
-                    if filter_metadata and not metadata_matches(
-                            meta, filter_metadata):
-                        continue
-                    if self.metric == "euclidean":
-                        raw = float(np.sqrt(max(-key, 0.0)))
-                    elif self.metric == "cosine":
-                        raw = float(np.clip(key, -1.0, 1.0))
-                    else:
-                        raw = float(key)
-                    indices.append(i)
-                    scores.append(raw)
-                    metas.append(meta)
-                out.append((indices, scores, metas))
-        return out
+        valid = labels >= 0
+        live = self._live_host_mask()
+        if live is not None:   # tombstones post-filter out
+            valid &= live[np.where(valid, labels, 0)] > 0
+        return self._format_batch(keys, labels, k, valid, filter_metadata)
 
     def _load_ann_sidecar(self, n: int) -> None:
         """Open the persisted index when it covers the store's rows, else
