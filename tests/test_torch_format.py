@@ -162,7 +162,8 @@ def test_ann_route_drops_empty_and_tombstoned_ids(tmp_path, metric):
     store._ann_search = lambda queries, fetch_k: (labels, keys)
     for filt in (None, {"g": 2}):
         want = _ann_reference(store, labels, keys, 4, filt)
-        got = store._ann_batch_query(rows[:4], 4, filt)
+        keys_, ids_, valid_ = store._ann_batch_query(rows[:4], 4, filt)
+        got = store._format_batch(keys_, ids_, 4, valid_, filt)
         assert_same(got, want)
         assert not any(i in (5, 9) or i < 0 for r in got for i in r[0])
 

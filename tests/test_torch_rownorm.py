@@ -37,6 +37,9 @@ def test_cpu_reductions_unchanged(d):
                        want.view(torch.int32))
     assert torch.equal(D.row_sqnorms(x).view(torch.int32),
                        torch.sum(x * x, dim=-1).view(torch.int32))
+    y = rows(d + 1, 40)[:, :d]
+    assert torch.equal(D.row_dots(x, y).view(torch.int32),
+                       torch.sum(x * y, dim=-1).view(torch.int32))
     q = x[:5]
     assert torch.equal(
         D.squared_l2_distances(q, x),
@@ -50,6 +53,7 @@ def test_shapes_kept():
     assert D.row_sqnorms(x.view(2, 3, 16)).shape == (2, 3)
     assert D.l2_normalize(x.view(2, 3, 16)).shape == (2, 3, 16)
     assert D.row_sqnorms(x[:0]).shape == (0,)
+    assert D.row_dots(x.view(2, 3, 16), x[:1]).shape == (2, 3)
 
 
 @pytest.fixture
@@ -62,12 +66,18 @@ def card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", DIMS)
 def test_row_bits_independent_of_row_count_on_card(card, d):
-    """For every row count 1-40 and 4096, each row's normalized bits and
-    squared norm equal that row's one-row result."""
+    """For every row count 1-40 and 4096, each row's normalized bits,
+    squared norm and inner product with its row of another tensor equal
+    that row's one-row result."""
     x = rows(d, max(COUNTS), card)
+    y = rows(d + 1, max(COUNTS), card)[:, :d]
     alone_norm = torch.cat([D.l2_normalize(r[None]) for r in x])
     alone_sq = torch.cat([D.row_sqnorms(r[None]) for r in x])
+    alone_dot = torch.cat([D.row_dots(r[None], s[None])
+                           for r, s in zip(x, y)])
     for n in COUNTS:
+        assert torch.equal(D.row_dots(x[:n], y[:n]).view(torch.int32),
+                           alone_dot[:n].view(torch.int32)), (d, n)
         assert torch.equal(D.l2_normalize(x[:n]).view(torch.int32),
                            alone_norm[:n].view(torch.int32)), (d, n)
         assert torch.equal(D.row_sqnorms(x[:n]).view(torch.int32),

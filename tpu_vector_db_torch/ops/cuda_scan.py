@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_vector_db_torch.monitoring import tracing
 from tpu_vector_db_torch.ops.distance import row_sqnorms
 from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.scan import scan_blocks
@@ -312,6 +313,10 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     if err != 0:
         raise RuntimeError(f"flat_topk kernel failed: CUDA error {err}")
     record(kernel_name(k))
+    if plan.chunk_rows:
+        # k > 32: the row chunks whose lists the merge combined (1: one
+        # launch scored every row), on the caller's span (``store.scan``)
+        tracing.annotate("chunks", plan.n_lists)
     return keys, ids
 
 

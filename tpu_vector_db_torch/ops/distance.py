@@ -75,6 +75,14 @@ def row_sqnorms(x: torch.Tensor) -> torch.Tensor:
                        x)[..., 0]
 
 
+def row_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., d) x (..., d) -> (...) float32 inner product of each row of
+    ``a`` with its row of ``b`` (broadcast), the same bits for a row in a
+    batch of any size."""
+    return _row_reduce(lambda r: torch.sum(r, dim=-1, keepdim=True),
+                       a.float() * b.float())[..., 0]
+
+
 def l2_normalize(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Row-wise L2 normalization with an eps clamp; a row gets the same
     bits in a batch of any size."""

@@ -716,10 +716,11 @@ class TorchVectorStore:
                 tracing.annotate("route", "graph" if self._ann_kind
                                  == "beam_graph" else self._ann_kind)
                 try:
-                    out = self._ann_batch_query(
-                        arr, k_engine, filter_metadata)[:n_q]
-                    return (self._rerank_exact(arr, out, k_eff)
-                            if rerank_active else out)
+                    keys, idx, valid = self._ann_batch_query(
+                        arr, k_engine, filter_metadata)
+                    return self._answers(arr, keys[:n_q], idx[:n_q],
+                                         valid[:n_q], k_engine, k_eff,
+                                         filter_metadata, rerank_active)
                 except Exception:  # noqa: BLE001 — as the JAX store: exact
                     logger.warning("ANN query failed; falling back to the "
                                    "exact scan", exc_info=True)
@@ -729,41 +730,94 @@ class TorchVectorStore:
             keys, idx = self._flat_topk(arr, k_engine, mask)
             keys, idx = keys[:n_q], idx[:n_q]
             # NaN keys stay valid, as NEG_INF alone marks an empty slot
-            out = self._format_batch(keys, idx, k_engine, keys != NEG_INF,
-                                     filter_metadata)
-            return (self._rerank_exact(arr, out, k_eff)
-                    if rerank_active else out)
+            return self._answers(arr, keys, idx, keys != NEG_INF, k_engine,
+                                 k_eff, filter_metadata, rerank_active)
 
-    def _rerank_exact(self, queries: np.ndarray, results: list,
-                      k: int) -> list:
-        """Re-score each query's candidates against the ORIGINAL f32 rows
-        on the host and return the exact top-k in the store's raw-score
-        convention (cosine: clipped similarity; euclidean: distance,
-        ascending; dot: score)."""
-        out = []
-        for qi, (indices, _scores, metas) in enumerate(results):
-            if not indices:
-                out.append((indices, _scores, metas))
-                continue
-            rows = self._host_buf[np.asarray(indices)].astype(np.float32)
-            q = queries[qi].astype(np.float32)
-            if self.metric == "cosine":
-                rows = rows / np.maximum(
-                    np.linalg.norm(rows, axis=1, keepdims=True), 1e-8)
-                q = q / max(float(np.linalg.norm(q)), 1e-8)
-                exact = np.clip(rows @ q, -1.0, 1.0)
-                order = np.argsort(-exact)[:k]
-            elif self.metric == "euclidean":
-                exact = np.linalg.norm(rows - q, axis=1)
-                order = np.argsort(exact)[:k]
+    def _answers(self, queries: np.ndarray, keys: np.ndarray,
+                 ids: np.ndarray, valid: np.ndarray, k_engine: int,
+                 k: int, filter_metadata: dict | None,
+                 rerank: bool) -> list:
+        """Either route's host (keys, ids, valid) block as the batch's
+        answers: formatted as they are, or with ``rerank`` re-scored
+        first and formatted at k."""
+        if not rerank:
+            return self._format_batch(keys, ids, k_engine, valid,
+                                      filter_metadata)
+        keys, ids, valid = self._rerank_exact(
+            queries, ids, self._candidates(ids, valid, k_engine,
+                                           filter_metadata), k)
+        return self._format_batch(keys, ids, k, valid, None)
+
+    def _candidates(self, ids: np.ndarray, valid: np.ndarray, k: int,
+                    filter_metadata: dict | None) -> np.ndarray:
+        """(n, w) bool: the entries ``_format_batch`` would answer at k,
+        the first k valid ones of a row that pass ``filter_metadata``'s
+        exact re-check."""
+        if not filter_metadata:
+            return valid & (np.cumsum(valid, axis=1) <= k)
+        metadata = self._metadata
+        keep = np.zeros_like(valid)
+        for r, row in enumerate(ids.tolist()):
+            taken = 0
+            for j in np.flatnonzero(valid[r]).tolist():
+                if taken >= k:
+                    break
+                if metadata_matches(metadata[row[j]], filter_metadata):
+                    keep[r, j] = True
+                    taken += 1
+        return keep
+
+    def _rerank_exact(self, queries: np.ndarray, ids: np.ndarray,
+                      keep: np.ndarray, k: int):
+        """Re-score the candidates ``keep`` marks in ``ids`` against the
+        ORIGINAL f32 host rows and return the exact top k of each row as
+        host (keys, ids, valid), keys in the scan's convention (cosine:
+        clipped similarity; dot: score; euclidean: minus the squared
+        distance, whose root ``_format_batch`` takes, as for a scan).
+        The ``store.rerank`` span carries the ``queries`` and the
+        ``candidates`` (rows re-scored) of the call.
+
+        The call is scored at once on the store's device: every row's
+        candidates, moved to its front in order (the rest padded with row
+        0, whose scores are never read), are gathered from the host rows
+        into one block (pinned on a card), copied over, scored with
+        ``ops/distance.py``'s row reductions, so a candidate's score has
+        the same bits in a call of any size, and sorted, ties in
+        candidate order."""
+        with tracing.span("store.rerank", host_only=True):
+            counts = keep.sum(axis=1)
+            width = int(counts.max(initial=0))
+            tracing.annotate("queries", len(ids))
+            tracing.annotate("candidates", int(counts.sum()))
+            n, d = len(ids), self.config.dimension
+            front = np.argsort(~keep, axis=1, kind="stable")[:, :width]
+            cand = np.take_along_axis(ids, front, 1)
+            live = np.take_along_axis(keep, front, 1)
+            if width == 0:
+                return np.zeros((n, 0), np.float32), cand, live
+            block = torch.empty((n * width, d), dtype=torch.float32,
+                                pin_memory=self.device.type == "cuda")
+            # ids are the store's own rows: "clip" skips numpy's bounds
+            # pass, which would gather into a temporary first
+            np.take(self._host_buf, np.where(live, cand, 0).reshape(-1),
+                    axis=0, out=block.numpy(), mode="clip")
+            rows = block.to(self.device, non_blocking=True).view(n, width, d)
+            q = torch.from_numpy(np.ascontiguousarray(
+                queries[:n], dtype=np.float32)).to(self.device)[:, None, :]
+            if self.metric == "euclidean":
+                exact = -D.row_sqnorms(rows - q)
+            elif self.metric == "cosine":
+                exact = D.row_dots(D.l2_normalize(rows),
+                                   D.l2_normalize(q)).clamp(-1.0, 1.0)
             else:  # dot
-                exact = rows @ q
-                order = np.argsort(-exact)[:k]
-            out.append((
-                [indices[j] for j in order],
-                [float(exact[j]) for j in order],
-                [metas[j] for j in order]))
-        return out
+                exact = D.row_dots(rows, q)
+            exact = exact.masked_fill(
+                ~torch.from_numpy(live).to(self.device), NEG_INF)
+            top, order = torch.sort(exact, dim=1, descending=True,
+                                    stable=True)
+            top, order = to_host(top[:, :k], order[:, :k])
+            return (top, np.take_along_axis(cand, order, 1),
+                    np.take_along_axis(live, order, 1))
 
     # ------------------------------------------------------------------ ANN
 
@@ -1034,8 +1088,9 @@ class TorchVectorStore:
 
     def _ann_batch_query(self, arr: np.ndarray, k: int,
                          filter_metadata: dict | None):
-        """One index search for the batch, then post-filtering of
-        tombstones and metadata filters on the host."""
+        """One index search for the batch: host (keys, ids, valid), the
+        tombstones marked invalid; filters are re-checked as the answers
+        are formatted."""
         fetch_k = self._post_filter_fetch_k(k, bool(filter_metadata))
         queries = self._prepare_queries(arr)
         with tracing.span("index.search", k=fetch_k):
@@ -1044,7 +1099,7 @@ class TorchVectorStore:
         live = self._live_host_mask()
         if live is not None:   # tombstones post-filter out
             valid &= live[np.where(valid, labels, 0)] > 0
-        return self._format_batch(keys, labels, k, valid, filter_metadata)
+        return keys, labels, valid
 
     def _load_ann_sidecar(self, n: int) -> None:
         """Open the persisted index when it covers the store's rows, else
