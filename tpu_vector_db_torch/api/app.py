@@ -33,6 +33,7 @@ import torch
 from aiohttp import web
 
 from tpu_vector_db_torch import __version__
+from tpu_vector_db_torch.api import query_body
 from tpu_vector_db_torch.api.middleware.rate_limiting import (
     ProductionRateLimiter, classify_operation, classify_tier)
 from tpu_vector_db_torch.core.logging_config import request_context, setup_logging
@@ -240,6 +241,9 @@ async def _on_startup(app: web.Application) -> None:
     """Warmup: multi-host bootstrap, device probe, store warmup
     (reference main.py:64-106)."""
     get_registry().start_sampler()
+    # the compiled decoder of query bodies, built here so that no request
+    # waits for the compiler; without it bodies take the generic path
+    query_body.load()
     manager = app["manager"]
     manager.errors.install_shutdown_handlers()
     # multi-host bootstrap, env-gated: VECTOR_DB_COORDINATOR (host:port of

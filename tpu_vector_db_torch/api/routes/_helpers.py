@@ -8,7 +8,8 @@ import torch
 from aiohttp import web
 from pydantic import BaseModel, ValidationError
 
-from tpu_vector_db_torch.monitoring import tracing
+from tpu_vector_db_torch.api import query_body
+from tpu_vector_db_torch.monitoring import record_query_body, tracing
 from tpu_vector_db_torch.ops.distance import raw_score_to_similarity_distance
 from tpu_vector_db_torch.security.auth import verify_admin_key, verify_api_key
 
@@ -39,8 +40,28 @@ def require_admin_key(handler):
     return wrapper
 
 
-async def parse_model(request: web.Request, model_cls: type[BaseModel]):
+async def parse_model(request: web.Request, model_cls: type[BaseModel],
+                      vectors: tuple[str, int] | None = None):
+    """The request's JSON body validated as ``model_cls``: 400 for a body
+    that is not JSON, 422 for one the model refuses. ``vectors``: the
+    model's vector field and its rank (1 or 2), which the compiled path
+    (``api/query_body.py``) parses into a float32 array where it takes
+    the whole body; the generic path decodes every other body, and each
+    is counted under its path."""
     with tracing.span("api.decode", host_only=True):
+        if vectors is not None:
+            try:
+                body = await request.read()
+            except Exception:  # noqa: BLE001
+                raise web.HTTPBadRequest(reason="invalid JSON body")
+            model = None
+            if (request.charset or "utf-8").lower() in ("utf-8", "utf8"):
+                model = query_body.decode(body, model_cls, *vectors)
+            route = "generic" if model is None else "native"
+            record_query_body(route)
+            tracing.annotate("route", route)
+            if model is not None:
+                return model
         try:
             payload = await request.json()
         except Exception:  # noqa: BLE001

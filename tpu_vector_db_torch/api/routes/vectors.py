@@ -64,7 +64,8 @@ async def delete_vectors(request: web.Request) -> web.Response:
 
 @require_api_key
 async def query_vectors(request: web.Request) -> web.Response:
-    body = await parse_model(request, VectorQueryRequest)
+    body = await parse_model(request, VectorQueryRequest,
+                             vectors=("query", 1))
     manager = request.app["manager"]
     coalescer = request.app.get("coalescer")
     t0 = time.perf_counter()
@@ -98,7 +99,8 @@ async def query_vectors(request: web.Request) -> web.Response:
 
 @require_api_key
 async def batch_query_vectors(request: web.Request) -> web.Response:
-    body = await parse_model(request, BatchQueryRequest)
+    body = await parse_model(request, BatchQueryRequest,
+                             vectors=("queries", 2))
     manager = request.app["manager"]
     t0 = time.perf_counter()
     batches = await manager.batch_query_async(

@@ -12,6 +12,7 @@ from tpu_vector_db_torch.monitoring.metrics import (  # noqa: F401
     record_request,
     record_vector_query,
     record_vector_addition,
+    record_query_body,
     record_cache_hit,
     record_index_build,
     record_error,

@@ -157,6 +157,12 @@ class MetricsRegistry:
         self.register(Histogram("vector_query_duration_seconds",
                                 "query latency"))
         self.register(Histogram("vector_add_duration_seconds", "add latency"))
+        # query bodies (/vectors/query, /vectors/batch_query) by decoder:
+        # the compiled scanner, or json + pydantic
+        self.register(Counter("query_bodies_native_total",
+                              "query bodies decoded by the compiled path"))
+        self.register(Counter("query_bodies_generic_total",
+                              "query bodies decoded by the generic path"))
         # cache / index
         self.register(Counter("cache_hits_total", "cache hits"))
         self.register(Counter("cache_misses_total", "cache misses"))
@@ -276,6 +282,11 @@ def record_vector_addition(count: int, duration_s: float) -> None:
     reg = get_registry()
     reg.counter("vector_additions_total").inc(count)
     reg.histogram("vector_add_duration_seconds").observe(duration_s)
+
+
+def record_query_body(route: str) -> None:
+    """A query body decoded on ``route``: "native" or "generic"."""
+    get_registry().counter(f"query_bodies_{route}_total").inc()
 
 
 def record_cache_hit(hit: bool) -> None:
