@@ -241,7 +241,7 @@ def test_scan_span_carries_the_chunks(monkeypatch, fresh_tracer, k, budget,
     """``chunks`` on the caller's span: the row chunks the big-k plan
     merged (64 queries over 10,000 rows: one chunk at the default key
     scratch, four at a budget of 2,816 rows a query); none for k <= 32."""
-    monkeypatch.setattr(cuda_scan, "_library", lambda: _FakeLib())
+    monkeypatch.setattr(cuda_scan.LIBRARY, "lib", _FakeLib())
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (9, 0))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())

@@ -27,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from tpu_vector_db_torch.api import query_body
 from tpu_vector_db_torch.api.models import BatchQueryRequest, VectorQueryRequest
 from tpu_vector_db_torch.monitoring import get_registry, tracing
+from tpu_vector_db_torch.ops import _build
 
 ADMIN_KEY = "tvdb_admin_test_key_0123456789"
 # the admin key is accepted on every route and its rate tier is the highest
@@ -359,7 +360,7 @@ def test_every_body_answers_as_on_the_generic_path(tmp_path, monkeypatch):
                                            headers or AUTH))
                 after = counts()
                 taken.append((after[0] - before[0], after[1] - before[1]))
-            monkeypatch.setattr(query_body, "_lib", None)
+            monkeypatch.setattr(query_body.LIBRARY, "lib", None)
             plain = [await answer(client, path, body, headers or AUTH)
                      for _, path, body, headers, _ in CASES]
             return native, taken, plain
@@ -414,12 +415,12 @@ def test_without_the_library_the_app_serves_on_the_generic_path(
     else:
         bad = tmp_path / "query_body.cpp"
         bad.write_text("int broken = ;\n")
-        monkeypatch.setattr(query_body, "SOURCE", bad)
-    monkeypatch.setattr(query_body, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(query_body, "_lib", None)
-    monkeypatch.setattr(query_body, "_tried", False)
+        monkeypatch.setattr(query_body.LIBRARY, "source", bad)
+    monkeypatch.setattr(query_body.LIBRARY, "out_dir", tmp_path / "build")
+    monkeypatch.setattr(query_body.LIBRARY, "lib", None)
+    monkeypatch.setattr(query_body.LIBRARY, "_failed", False)
     warnings = []
-    monkeypatch.setattr(query_body.logger, "warning",
+    monkeypatch.setattr(_build.logger, "warning",
                         lambda *a, **k: warnings.append(a))
 
     async def go():

@@ -470,7 +470,7 @@ def test_launch_plan_one_launch_per_call(monkeypatch, k, budget):
     plan's chunking and, with several chunks, candidate lists for the
     merge."""
     fake = _FakeLib()
-    monkeypatch.setattr(cuda_scan, "_library", lambda: fake)
+    monkeypatch.setattr(cuda_scan.LIBRARY, "lib", fake)
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (9, 0))
     monkeypatch.setattr(torch.cuda, "device", lambda d: __import__(
         "contextlib").nullcontext())

@@ -318,7 +318,9 @@ def test_import_pulls_in_no_jax():
             "tpu_vector_db_torch.index.ivf, "
             "tpu_vector_db_torch.index.beam_graph, "
             "tpu_vector_db_torch.index.native, "
-            "tpu_vector_db_torch.pipeline._native, "
+            "tpu_vector_db_torch.pipeline.fast_wordpiece, "
+            "tpu_vector_db_torch.pipeline.fast_unigram, "
+            "tpu_vector_db_torch.api.query_body, "
             "tpu_vector_db_torch.sdk, tpu_vector_db_torch.sdk.client\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpu_vector_db' or "

@@ -121,8 +121,8 @@ def test_native_paths_are_live_and_shared_with_jax():
     from tpu_vector_db.pipeline import fast_unigram as jfu
     from tpu_vector_db.pipeline import fast_wordpiece as jfw
     from tpu_vector_db_torch.pipeline import fast_unigram, fast_wordpiece
-    assert fast_wordpiece._load()._name == jfw._load()._name
-    assert fast_unigram._load()._name == jfu._load()._name
+    assert fast_wordpiece.LIBRARY.load()._name == jfw._load()._name
+    assert fast_unigram.LIBRARY.load()._name == jfu._load()._name
 
 
 @pytest.mark.parametrize("path", [0, 1], ids=["python", "native"])

@@ -360,15 +360,20 @@ def _chunk_for(e: int, limit: int = 4096) -> int:
 
 # ------------------------------------------------------------------- index
 
+# the graph's default M (its degree is 2M): the store's device budget
+# counts the edges of a graph built at it
+DEFAULT_M = 16
+
+
 class BeamGraphIndex:
     """Owns the GRAPH only; the vectors stay in the store's device matrix.
     The graph and its edge keys live on ``device`` (the store's), with a
     lazy host mirror for save, stats and the native builder."""
 
-    def __init__(self, dim: int, metric: str = "cosine", M: int = 16,
-                 ef_construction: int = 200, entry_count: int = 8,
-                 alpha: float = 1.2, batch_size: int = 512,
-                 entry_cap: int = 4096, seed: int = 0,
+    def __init__(self, dim: int, metric: str = "cosine",
+                 M: int = DEFAULT_M, ef_construction: int = 200,
+                 entry_count: int = 8, alpha: float = 1.2,
+                 batch_size: int = 512, entry_cap: int = 4096, seed: int = 0,
                  insert_budget_div: int | None = None,
                  refine_budget_div: int | None = None,
                  device: str | torch.device = "cuda") -> None:

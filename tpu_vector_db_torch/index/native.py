@@ -1,22 +1,19 @@
 """ctypes bridge to the native graph builder (native/graph_builder.cpp).
 
 Counterpart of ``tpu_vector_db/index/native.py``, unchanged but for the
-loader it imports (the port's own copy, ``pipeline/_native.py``, which
-builds to the same ``native/libvdbgraph-<hash>.so``). Compiles the shared
-library on first use, and reports unavailable when no compiler is
-present; the store then builds the graph on its own device.
+loader (``ops/_build.py``, which builds to the JAX loader's
+``native/libvdbgraph-<hash>.so``). Compiles the shared library on first
+use, and reports unavailable when no compiler is present; the store then
+builds the graph on its own device.
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 
 import numpy as np
 
-from tpu_vector_db_torch.pipeline._native import NativeLib
-
-logger = logging.getLogger(__name__)
+from tpu_vector_db_torch.ops._build import NATIVE_DIR, Library
 
 
 def _register(lib: ctypes.CDLL) -> None:
@@ -39,12 +36,13 @@ def _register(lib: ctypes.CDLL) -> None:
 
 
 # -funroll-loops + -fopenmp-simd vectorize the distance reductions (4-8x)
-_NATIVE = NativeLib("graph_builder.cpp", "libvdbgraph.so", _register,
-                    extra_flags=("-funroll-loops", "-fopenmp-simd"))
+LIBRARY = Library(NATIVE_DIR / "graph_builder.cpp", _register,
+                  name="libvdbgraph",
+                  flags=("-funroll-loops", "-fopenmp-simd"))
 
 
 def load() -> ctypes.CDLL | None:
-    return _NATIVE.load()
+    return LIBRARY.load()
 
 
 def available() -> bool:

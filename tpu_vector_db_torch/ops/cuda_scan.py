@@ -34,12 +34,12 @@ every product accumulates in float32.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
 from tpu_vector_db_torch.monitoring import tracing
+from tpu_vector_db_torch.ops._build import CSRC, Library
 from tpu_vector_db_torch.ops.distance import row_sqnorms
 from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.scan import scan_blocks
@@ -160,29 +160,21 @@ def _plan(design: str, q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
                       n_chunks or splits * _WARPS, chunk)
 
 
-_lib_lock = threading.Lock()
-_lib = None
-
-
 def kernel_name(k: int) -> str:
     return "scan_kernel" if k <= MAX_K_SMALL else "scan_kernel_bigk"
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            from tpu_vector_db_torch.ops import _build
-            lib = _build.load("flat_topk")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.vdb_flat_topk.argtypes = [
-                p, p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, i, i, i, p,
-                p, p, p, p, p]
-            lib.vdb_flat_topk.restype = i
-            lib.vdb_flat_scratch_bytes.argtypes = [i, i, i, i]
-            lib.vdb_flat_scratch_bytes.restype = ctypes.c_longlong
-            _lib = lib
-        return _lib
+def _signatures(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vdb_flat_topk.argtypes = [
+        p, p, i, i, p, i, i, i, p, p, p, i, i, i, i, i, i, i, i, p,
+        p, p, p, p, p]
+    lib.vdb_flat_topk.restype = i
+    lib.vdb_flat_scratch_bytes.argtypes = [i, i, i, i]
+    lib.vdb_flat_scratch_bytes.restype = ctypes.c_longlong
+
+
+LIBRARY = Library(CSRC / "flat_topk.cu", _signatures)
 
 
 def query_dtype(db_dtype: torch.dtype) -> torch.dtype:
@@ -264,7 +256,7 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
         # the kernel reads every row in 16-byte loads
         raise ValueError("db rows must be a multiple of 16 bytes and start "
                          "16-byte aligned")
-    lib = _library()
+    lib = LIBRARY.load()
     dev = db.device
     q_n = queries.shape[0]
     count = max(0, min(int(count), db.shape[0]))

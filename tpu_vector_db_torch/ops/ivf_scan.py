@@ -33,10 +33,10 @@ accumulates in float32.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from tpu_vector_db_torch.ops._build import CSRC, Library
 from tpu_vector_db_torch.ops.distance import row_sqnorms
 from tpu_vector_db_torch.ops.launches import record
 from tpu_vector_db_torch.ops.topk import (MERGE_SMALL_MAX_K, NEG_INF,
@@ -49,24 +49,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TARGET_BLOCKS = 1056
 _MIN_ROWS_PER_SPLIT = 64
 
-_lib_lock = threading.Lock()
-_lib = None
+
+def _signatures(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vdb_ivf_topk.argtypes = [
+        p, i, i, p, i, i, i, p, i, p, p, p, i, i, i, p, p, p, p, p]
+    lib.vdb_ivf_topk.restype = i
+    lib.vdb_merge_small_k.argtypes = [p, p, i, i, i, p, p, i, p]
+    lib.vdb_merge_small_k.restype = i
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            from tpu_vector_db_torch.ops import _build
-            lib = _build.load("ivf_topk")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.vdb_ivf_topk.argtypes = [
-                p, i, i, p, i, i, i, p, i, p, p, p, i, i, i, p, p, p, p, p]
-            lib.vdb_ivf_topk.restype = i
-            lib.vdb_merge_small_k.argtypes = [p, p, i, i, i, p, p, i, p]
-            lib.vdb_merge_small_k.restype = i
-            _lib = lib
-        return _lib
+LIBRARY = Library(CSRC / "ivf_topk.cu", _signatures)
 
 
 def _finish_euclidean(vals, idx, queries, metric):
@@ -231,7 +224,7 @@ def _launch(queries, db_buckets, bucket_ids, bucket_fills, sel, k, metric,
             f"{torch.cuda.get_device_name(dev)} is not")
     if not db_buckets.is_contiguous() or db_buckets.data_ptr() % 16:
         raise ValueError("db_buckets must be contiguous and 16-byte aligned")
-    lib = _library()
+    lib = LIBRARY.load()
     nb, bc, d_pad = db_buckets.shape
     q_n, n_probe = sel.shape
     euclid = metric == "euclidean"
@@ -300,7 +293,7 @@ def merge_small_k(keys, ids, k: int, empty_id: int = -1):
         raise RuntimeError(
             "csrc/ivf_topk.cu is built for sm_90a (Hopper); device "
             f"{torch.cuda.get_device_name(dev)} is not")
-    lib = _library()
+    lib = LIBRARY.load()
     q_n, n = keys.shape
     keys = keys.to(torch.float32).contiguous()
     ids = ids.to(device=dev, dtype=torch.int32).contiguous()

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from tpu_vector_db_torch.index import native
-from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex, beam_search
+from tpu_vector_db_torch.index.beam_graph import (DEFAULT_M, BeamGraphIndex,
+                                                  beam_search)
 from tpu_vector_db_torch.parallel.mesh import Mesh, local_count
 from tpu_vector_db_torch.parallel.sharded_scan import _to, merge_shards
 from tpu_vector_db_torch.utils.fs import atomic_save_npz
@@ -46,8 +47,9 @@ class ShardedBeamGraph:
 
     SHARDED_GRAPH_FILE = "ann_sharded_graph.npz"
 
-    def __init__(self, dim: int, metric: str, mesh: Mesh, M: int = 16,
-                 ef_construction: int = 200, alpha: float = 1.2) -> None:
+    def __init__(self, dim: int, metric: str, mesh: Mesh,
+                 M: int = DEFAULT_M, ef_construction: int = 200,
+                 alpha: float = 1.2) -> None:
         self.dim = dim
         self.metric = metric
         self.mesh = mesh

@@ -45,7 +45,8 @@ from tpu_vector_db_torch.ops import distance as D
 from tpu_vector_db_torch.ops.topk import to_host
 from tpu_vector_db_torch.parallel.mesh import make_device_mesh
 from tpu_vector_db_torch.parallel.sharded_scan import sharded_flat_topk
-from tpu_vector_db_torch.store.config import VectorStoreConfig
+from tpu_vector_db_torch.store.config import (VectorStoreConfig, ann_param,
+                                             index_args)
 from tpu_vector_db_torch.store.vector_store import TorchVectorStore
 
 logger = logging.getLogger(__name__)
@@ -156,7 +157,7 @@ class ShardedVectorStore(TorchVectorStore):
         with self._ann_build_lock:
             if self._count == 0:
                 return
-            kind = self.config.ann_params.get("index_type", "auto")
+            kind = ann_param(self.config.ann_params, "index_type")
             if kind in ("auto", "ivf"):
                 self._refresh_sharded_ivf(incremental_from)
             elif kind == "flat":
@@ -185,12 +186,10 @@ class ShardedVectorStore(TorchVectorStore):
         if self._extends(ShardedBeamGraph, incremental_from):
             self._ann.add(self._host_buf, incremental_from, self._count)
         else:
-            p = self.config.ann_params
             self._ann = ShardedBeamGraph(
                 dim=self.config.dimension, metric=self.metric,
-                mesh=self.mesh, M=p.get("M", 16),
-                ef_construction=p.get("ef_construction", 200),
-                alpha=p.get("alpha", 1.2))
+                mesh=self.mesh, **index_args(self.config.ann_params, "M",
+                                             "ef_construction", "alpha"))
             if (self._ann.load(self.store_path, self._cap)
                     and self._ann.size == self._count):
                 self._ann_stale = False
@@ -205,13 +204,11 @@ class ShardedVectorStore(TorchVectorStore):
             self._ann.add(self._db, incremental_from, self._count,
                           self._sqnorms, self._scales)
         else:
-            p = self.config.ann_params
             self._ann = ShardedIVF(
                 dim=self.config.dimension, metric=self.metric,
-                mesh=self.mesh, nprobe=p.get("nprobe", 32),
-                n_clusters=p.get("n_clusters"),
-                bucket_rows=p.get("bucket_rows"),
-                train_iters=p.get("train_iters", 10))
+                mesh=self.mesh, **index_args(
+                    self.config.ann_params, "nprobe", "n_clusters",
+                    "bucket_rows", "train_iters"))
             if (self._ann.load(self.store_path, self._db, self._sqnorms)
                     and self._ann.size == self._count):
                 self._ann_stale = False
@@ -230,7 +227,8 @@ class ShardedVectorStore(TorchVectorStore):
         p = self.config.ann_params
         if isinstance(self._ann, ShardedIVF):
             keys, ids = self._ann.search(
-                queries_prepared, fetch_k, nprobe=p.get("nprobe", 32),
+                queries_prepared, fetch_k,
+                nprobe=p.get("nprobe", self._ann.nprobe),
                 db=self._db, scales=self._scales)
             keys, ids = to_host(keys, ids)
             if self.config.storage_dtype == "int8":
@@ -239,7 +237,7 @@ class ShardedVectorStore(TorchVectorStore):
             return ids, keys
         keys, ids = to_host(*self._ann.search(
             queries_prepared, self._db, self._count, fetch_k,
-            ef_search=max(p.get("ef_search", 100), fetch_k),
+            ef_search=max(ann_param(p, "ef_search"), fetch_k),
             sqnorms=self._sqnorms))
         return ids, keys
 

@@ -8,7 +8,6 @@ pretrained HF encoders), and the text / RAG pipeline over
 ``TorchVectorStore`` (``pipeline.py``). Encoders run on the card unless
 the caller passes ``device="cpu"``; the default encoder is the
 weights-free hashing projection, the JAX package's own table.
-``_native.py`` is the ctypes loader shared with ``index/native.py``.
 """
 
 from tpu_vector_db_torch.pipeline.encoders import (  # noqa: F401

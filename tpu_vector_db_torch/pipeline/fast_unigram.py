@@ -2,8 +2,8 @@
 native/unigram.cpp).
 
 Counterpart of ``tpu_vector_db/pipeline/fast_unigram.py``, over the
-same ``native/libvdbuni-<sha>.so`` (g++ at first use, through the port's
-``pipeline/_native.py``). Unlike the WordPiece fast path this one is NOT
+same ``native/libvdbuni-<sha>.so`` (g++ at first use, through
+``ops/_build.py``). Unlike the WordPiece fast path this one is NOT
 ASCII-gated: Unicode normalization runs in Python
 (``unicodedata.normalize`` is one C call per text) and the C++ side works
 on the normalized UTF-8 bytes, so multilingual input stays on the native
@@ -26,7 +26,7 @@ import re
 
 import numpy as np
 
-from tpu_vector_db_torch.pipeline._native import NativeLib
+from tpu_vector_db_torch.ops._build import NATIVE_DIR, Library
 from tpu_vector_db_torch.pipeline.unigram import UnigramTokenizer
 
 logger = logging.getLogger(__name__)
@@ -58,15 +58,11 @@ def _register(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
 
 
-_NATIVE = NativeLib("unigram.cpp", "libvdbuni.so", _register)
-
-
-def _load() -> ctypes.CDLL | None:
-    return _NATIVE.load()
+LIBRARY = Library(NATIVE_DIR / "unigram.cpp", _register, name="libvdbuni")
 
 
 def native_available() -> bool:
-    return _load() is not None
+    return LIBRARY.load() is not None
 
 
 def _parse_pretok(pre_tokenizers: list[dict]):
@@ -106,7 +102,7 @@ class FastUnigramTokenizer(UnigramTokenizer):
         super().__init__(tokenizer_json)
         self._h = None
         self._route_ws = False
-        lib = _load()
+        lib = LIBRARY.load()
         if lib is None:
             return
         flags = _parse_pretok(self._pre_tokenizers)

@@ -5,8 +5,8 @@ pure-Python WordPiece is the slow host half of an encode call; the C++
 path covers ASCII text exactly (same algorithm, byte for byte) and any
 text containing a non-ASCII byte routes to the Python tokenizer, so ids
 are equal by construction. The library is the JAX loader's:
-``native/libvdbtok-<sha>.so``, built by g++ at first use through the
-port's ``pipeline/_native.py``. With no compiler every text takes the
+``native/libvdbtok-<sha>.so``, built by g++ at first use through
+``ops/_build.py``. With no compiler every text takes the
 Python path; ``native_available()`` and ``FastWordPieceTokenizer.native``
 say which path is live."""
 
@@ -17,7 +17,7 @@ import logging
 
 import numpy as np
 
-from tpu_vector_db_torch.pipeline._native import NativeLib
+from tpu_vector_db_torch.ops._build import NATIVE_DIR, Library
 from tpu_vector_db_torch.pipeline.wordpiece import (CLS, PAD, SEP, UNK,
                                                     WordPieceTokenizer)
 
@@ -41,15 +41,12 @@ def _register(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
 
 
-_NATIVE = NativeLib("wordpiece.cpp", "libvdbtok.so", _register)
-
-
-def _load() -> ctypes.CDLL | None:
-    return _NATIVE.load()
+LIBRARY = Library(NATIVE_DIR / "wordpiece.cpp", _register,
+                  name="libvdbtok")
 
 
 def native_available() -> bool:
-    return _load() is not None
+    return LIBRARY.load() is not None
 
 
 class FastWordPieceTokenizer(WordPieceTokenizer):
@@ -70,7 +67,7 @@ class FastWordPieceTokenizer(WordPieceTokenizer):
         self._h = None
         # accent stripping is a no-op on ASCII, so any strip_accents value
         # is compatible with the ASCII fast path
-        lib = _load()
+        lib = LIBRARY.load()
         if lib is not None and max_input_chars_per_word == 100:
             ordered = sorted(self.vocab.items(), key=lambda kv: kv[1])
             # ids must be dense 0..n-1 for the order-is-id blob contract

@@ -26,6 +26,51 @@ _HBM_USABLE_FRACTION = 0.85
 
 _ITEM_BYTES = {"float32": 4.0, "bfloat16": 2.0, "int8": 1.0, "int4": 0.5}
 
+# The defaults of the ann_params keys the store reads itself: the index
+# type, the graph's search width, the rerank oversample, the routing
+# thresholds and the recall guard's. The index-construction keys (IVF's
+# n_clusters, nprobe, bucket_rows, train_iters, ivf_layout; the graph's M,
+# ef_construction, alpha, entry_cap, insert_budget_div, refine_budget_div)
+# take their defaults from the index classes' signatures, and
+# remediate_nprobe_max defaults to the clusters that were built.
+ANN_DEFAULTS = {
+    "index_type": "auto",
+    "ef_search": 100,
+    "rerank_oversample": 4,
+    "auto_flat_rows": 100_000,
+    "ann_min_rows": 0,
+    "auto_batch_flat_q": 32,
+    "auto_batch_flat_rows": 2_000_000,
+    "filter_exact_selectivity": 0.05,
+    "deleted_exact_live_frac": 0.25,
+    "build_backend": "tpu",
+    "self_check": True,
+    "remediate_target": 0.98,
+    "auto_remediate": True,
+    "remediate_max_refines": 2,
+    "recall_warn": 0.90,
+    "recall_floor": 0.50,
+}
+
+
+def ann_param(params: dict, key: str):
+    """``params[key]``, else its default in ``ANN_DEFAULTS``;
+    ``ann_min_rows`` falls back to ``min_rows`` first."""
+    if key in params:
+        return params[key]
+    if key == "ann_min_rows" and "min_rows" in params:
+        return params["min_rows"]
+    return ANN_DEFAULTS[key]
+
+
+def index_args(params: dict, *keys: str, **renamed: str) -> dict:
+    """The index-construction ``keys`` that ``params`` holds, as keyword
+    arguments of an index class (``renamed``: argument -> ann_params key);
+    the class's signature supplies the rest."""
+    args = {k: params[k] for k in keys if k in params}
+    args.update((a, params[k]) for a, k in renamed.items() if k in params)
+    return args
+
 
 class StoreCapacityError(ValueError):
     """Requested row capacity cannot fit the device memory budget.
@@ -56,18 +101,10 @@ class VectorStoreConfig:
     # ANN index: IVF (index/ivf.py), which index_type "auto" picks from
     # 100K rows, or the beam graph (index/beam_graph.py, "beam_graph")
     enable_ann: bool = False
+    # the manifest holds this dict as it is, and the JAX package reads it
     ann_params: dict = field(default_factory=lambda: {
         "M": 16, "ef_construction": 200, "ef_search": 100,
     })
-    # ann_params keys the store and its indexes read: index_type; IVF's
-    # n_clusters, nprobe, bucket_rows, train_iters, ivf_layout; the
-    # graph's M, ef_construction, ef_search, alpha, entry_cap,
-    # insert_budget_div, refine_budget_div, build_backend;
-    # rerank_oversample, the routing thresholds (auto_flat_rows,
-    # ann_min_rows, auto_batch_flat_q/_rows, filter_exact_selectivity,
-    # deleted_exact_live_frac) and the recall guard's (self_check,
-    # remediate_target, auto_remediate, remediate_nprobe_max,
-    # remediate_max_refines, recall_warn, recall_floor).
     # Storage dtype for the device-resident matrix. bf16 halves the bytes
     # the scan streams at ~1e-3 score error; int8/int4 are capacity modes.
     storage_dtype: str = "float32"
@@ -100,7 +137,7 @@ class VectorStoreConfig:
                     f"storage_dtype={self.storage_dtype!r} requires "
                     "metric='cosine' (rows must be unit-norm for the "
                     "quantizer)")
-            itype = self.ann_params.get("index_type", "auto")
+            itype = ann_param(self.ann_params, "index_type")
             if self.enable_ann and itype not in ("auto", "flat", "ivf"):
                 raise ValueError(
                     f"storage_dtype={self.storage_dtype!r} supports "
@@ -108,7 +145,7 @@ class VectorStoreConfig:
                     f"got {itype!r}")
         if self.dimension < 1 or self.dimension > 8192:
             raise ValueError(f"dimension out of range: {self.dimension}")
-        itype = self.ann_params.get("index_type", "auto")
+        itype = ann_param(self.ann_params, "index_type")
         if itype not in ("auto", "flat", "beam_graph", "ivf"):
             raise ValueError(
                 f"index_type must be auto|flat|beam_graph|ivf, got {itype!r}")
@@ -129,9 +166,9 @@ class VectorStoreConfig:
         if self.storage_dtype == "int4":
             per_row += 4.0                      # f32 per-row scales
         if self.enable_ann:
-            itype = self.ann_params.get("index_type", "auto")
-            if itype == "beam_graph":
-                m = int(self.ann_params.get("M", 16))
+            if ann_param(self.ann_params, "index_type") == "beam_graph":
+                from tpu_vector_db_torch.index.beam_graph import DEFAULT_M
+                m = int(self.ann_params.get("M", DEFAULT_M))
                 per_row += m * 2 * 8.0          # edges i32 + edge keys f32
             else:                               # IVF (auto routes here)
                 per_row += 6.0                  # bucket id table + slack

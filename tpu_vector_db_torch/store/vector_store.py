@@ -17,7 +17,8 @@ Counterpart of ``tpu_vector_db/store/vector_store.py::TPUVectorStore``:
 * an exact query is one launch of ``ops/cuda_scan.flat_topk`` (any k)
   and one packed device-to-host copy;
 * with ``enable_ann=True`` the store keeps an ANN index: IVF
-  (``index/ivf.py``; ``index_type="auto"`` picks it from 100K rows) or
+  (``index/ivf.py``; ``index_type="auto"`` picks it from
+  ``auto_flat_rows`` rows) or
   the beam graph (``index/beam_graph.py``, ``index_type="beam_graph"``),
   and routes each query as the JAX store does: to the index, or to the
   exact scan for IVF past k = 32, batches of 32 and more (auto mode),
@@ -61,7 +62,8 @@ from tpu_vector_db_torch.ops.cuda_scan import flat_topk
 from tpu_vector_db_torch.ops.quant4 import quantize_unit_rows
 from tpu_vector_db_torch.ops.topk import NEG_INF, to_host
 from tpu_vector_db_torch.store import persistence
-from tpu_vector_db_torch.store.config import VectorStoreConfig
+from tpu_vector_db_torch.store.config import (VectorStoreConfig, ann_param,
+                                             index_args)
 from tpu_vector_db_torch.utils.concurrency import RWLock
 from tpu_vector_db_torch.utils.fs import (FileLock, atomic_save_npz,
                                           ensure_directory)
@@ -652,11 +654,11 @@ class TorchVectorStore:
         """Batched top-k: list of (indices, raw_scores, metadata) per query.
 
         rerank=True (lossy storage dtypes bfloat16/int8/int4): the engine
-        oversamples k * ann_params["rerank_oversample"] (default 4)
-        candidates, which are re-scored against the ORIGINAL f32 host
-        rows. No-op on float32 stores. use_ann=False forces the exact
-        scan on an ANN store; an ANN query that fails falls back to the
-        exact scan with a warning, as in the JAX store."""
+        oversamples k * ann_params["rerank_oversample"] candidates, which
+        are re-scored against the ORIGINAL f32 host rows. No-op on float32
+        stores. use_ann=False forces the exact scan on an ANN store; an ANN
+        query that fails falls back to the exact scan with a warning, as in
+        the JAX store."""
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         arr = validate_vector_shape(query_vectors, self.config.dimension)
@@ -677,13 +679,13 @@ class TorchVectorStore:
             k_eff = min(int(k), live_total)
             rerank_active = (rerank and
                              self.config.storage_dtype != "float32")
-            over = int(self.config.ann_params.get("rerank_oversample", 4))
+            p = self.config.ann_params
+            over = int(ann_param(p, "rerank_oversample"))
             k_engine = (min(self._count, k_eff * max(over, 1))
                         if rerank_active else k_eff)
 
-            p = self.config.ann_params
             # routing: ANN only past ann_min_rows (0: always, when enabled)
-            min_rows = p.get("ann_min_rows", p.get("min_rows", 0))
+            min_rows = ann_param(p, "ann_min_rows")
             # IVF large-k: past the probe kernel's k = 32 the exact big-k
             # scan serves the query. Tombstones post-filter out of ANN
             # results like filters, and share their oversample
@@ -697,18 +699,18 @@ class TorchVectorStore:
             low_sel_filter = False
             if filter_metadata:
                 live = float(host_mask[:max(self._count, 1)].sum())
-                low_sel_filter = live < p.get(
-                    "filter_exact_selectivity", 0.05) * self._count
+                low_sel_filter = live < ann_param(
+                    p, "filter_exact_selectivity") * self._count
             elif self._deleted:
                 live_frac = live_total / max(self._count, 1)
-                low_sel_filter = live_frac < p.get(
-                    "deleted_exact_live_frac", 0.25)
+                low_sel_filter = live_frac < ann_param(
+                    p, "deleted_exact_live_frac")
             # auto mode: a large batch below the row crossover is one
             # exact sweep shared by the batch (index_type='auto' only)
-            auto_mode = p.get("index_type", "auto") == "auto"
+            auto_mode = ann_param(p, "index_type") == "auto"
             high_batch_flat = (
-                auto_mode and n_q >= p.get("auto_batch_flat_q", 32)
-                and self._count <= p.get("auto_batch_flat_rows", 2_000_000))
+                auto_mode and n_q >= ann_param(p, "auto_batch_flat_q")
+                and self._count <= ann_param(p, "auto_batch_flat_rows"))
             if (use_ann and self.config.enable_ann and not ivf_large_k and
                     not high_batch_flat and not low_sel_filter and
                     self._ann is not None and not self._ann_stale and
@@ -826,7 +828,7 @@ class TorchVectorStore:
         """'beam_graph', 'ivf' or 'flat' (no index: the exact scan serves
         everything). index_type='auto' (the default) resolves from the
         store size, see _auto_pick_kind; the graph is an explicit choice."""
-        requested = self.config.ann_params.get("index_type", "auto")
+        requested = ann_param(self.config.ann_params, "index_type")
         if requested != "auto":
             return requested
         if self._auto_kind is None:
@@ -834,10 +836,10 @@ class TorchVectorStore:
         return self._auto_kind
 
     def _auto_pick_kind(self) -> str:
-        """Flat below ann_params["auto_flat_rows"] (default 100K rows),
-        IVF above it; int8/int4 stores take IVF's gather layout. Large
-        batches re-route to the exact scan at query time (batch_query)."""
-        flat_rows = self.config.ann_params.get("auto_flat_rows", 100_000)
+        """Flat below ann_params["auto_flat_rows"], IVF above it; int8/int4
+        stores take IVF's gather layout. Large batches re-route to the
+        exact scan at query time (batch_query)."""
+        flat_rows = ann_param(self.config.ann_params, "auto_flat_rows")
         return "flat" if self._count < flat_rows else "ivf"
 
     def _make_ann(self) -> IVFIndex | BeamGraphIndex:
@@ -845,19 +847,13 @@ class TorchVectorStore:
         if self._ann_kind == "ivf":
             return IVFIndex(
                 dim=self.config.dimension, metric=self.metric,
-                n_clusters=p.get("n_clusters"), nprobe=p.get("nprobe", 32),
-                bucket_rows=p.get("bucket_rows"),
-                train_iters=p.get("train_iters", 10),
-                layout=p.get("ivf_layout", "auto"))
+                **index_args(p, "n_clusters", "nprobe", "bucket_rows",
+                             "train_iters", layout="ivf_layout"))
         return BeamGraphIndex(
             dim=self.config.dimension, metric=self.metric,
-            M=p.get("M", 16),
-            ef_construction=p.get("ef_construction", 200),
-            alpha=p.get("alpha", 1.2),
-            entry_cap=p.get("entry_cap", 4096),
-            insert_budget_div=p.get("insert_budget_div"),
-            refine_budget_div=p.get("refine_budget_div"),
-            device=self.device)
+            device=self.device,
+            **index_args(p, "M", "ef_construction", "alpha", "entry_cap",
+                         "insert_budget_div", "refine_budget_div"))
 
     def _ann_search(self, queries_prepared, fetch_k: int):
         """The index's (ids, keys) in the store's final key convention:
@@ -867,7 +863,7 @@ class TorchVectorStore:
         if self._ann_kind == "beam_graph":
             return self._ann.search(
                 queries_prepared, self._db, self._count, k=fetch_k,
-                ef_search=max(p.get("ef_search", 100), fetch_k),
+                ef_search=max(ann_param(p, "ef_search"), fetch_k),
                 sqnorms=self._sqnorms)
         ids, keys = self._ann.search(
             queries_prepared, self._db, self._count, k=fetch_k,
@@ -895,7 +891,7 @@ class TorchVectorStore:
             count = self._count
             if count == 0:
                 return
-            if self.config.ann_params.get("index_type", "auto") == "auto":
+            if ann_param(self.config.ann_params, "index_type") == "auto":
                 # a store growing past the crossover promotes to IVF (full
                 # build); one shrinking below it demotes to the exact scan
                 new_kind = self._auto_pick_kind()
@@ -941,7 +937,7 @@ class TorchVectorStore:
         builder the graph is built on the store's device."""
         if self._ann_kind != "beam_graph":
             return False
-        backend = self.config.ann_params.get("build_backend", "tpu")
+        backend = ann_param(self.config.ann_params, "build_backend")
         if backend not in ("cpu", "auto"):
             return False
         if native.available():
@@ -955,15 +951,14 @@ class TorchVectorStore:
         """Sampled recall@k of the index against the exact scan.
 
         Self-queries a power-of-two sample of stored rows through both
-        paths; below ``remediate_target`` (default 0.98) IVF doubles
-        nprobe until it clears (_remediate_low_recall); below
-        ``recall_warn`` (0.90) it warns; below ``recall_floor`` (0.50)
-        queries route to the exact scan. The graph remediates by
-        full-budget refine passes instead. A hit is an id in the exact
-        top-k, or a key that ties the exact k-th within 0.004 (bf16
-        ties make the id set an arbitrary tie-break)."""
+        paths; below ``remediate_target`` IVF doubles nprobe until it
+        clears (_remediate_low_recall); below ``recall_warn`` it warns;
+        below ``recall_floor`` queries route to the exact scan. The graph
+        remediates by full-budget refine passes instead. A hit is an id in
+        the exact top-k, or a key that ties the exact k-th within 0.004
+        (bf16 ties make the id set an arbitrary tie-break)."""
         p = self.config.ann_params
-        if not p.get("self_check", True) or self._count < 2 \
+        if not ann_param(p, "self_check") or self._count < 2 \
                 or self._ann is None:
             return
         n = 1 << (min(sample, self._count).bit_length() - 1)
@@ -992,13 +987,13 @@ class TorchVectorStore:
             return hits / float(n * k_eff)
 
         est = estimate()
-        warn = p.get("recall_warn", 0.90)
-        target = p.get("remediate_target", 0.98)
-        if est < target and p.get("auto_remediate", True):
+        warn = ann_param(p, "recall_warn")
+        target = ann_param(p, "remediate_target")
+        if est < target and ann_param(p, "auto_remediate"):
             est = self._remediate_low_recall(est, target, estimate)
         self._ann_recall_estimate = est
         self._ann_checked_at = self._count
-        floor = p.get("recall_floor", 0.50)
+        floor = ann_param(p, "recall_floor")
         was_low = self._ann_low_recall
         self._ann_low_recall = est < floor
         if self._ann_low_recall:
@@ -1025,13 +1020,13 @@ class TorchVectorStore:
           manifest);
         * the beam graph runs full-budget refine passes
           (refine_budget_div = 1) over its graph, at most
-          ``remediate_max_refines`` (default 2).
+          ``remediate_max_refines``.
 
         The changed index is written to its sidecar."""
         p = self.config.ann_params
         changed = False
         if self._ann_kind == "beam_graph":
-            max_refines = int(p.get("remediate_max_refines", 2))
+            max_refines = int(ann_param(p, "remediate_max_refines"))
             old_div = self._ann.refine_budget_div
             self._ann.refine_budget_div = 1
             try:
@@ -1258,8 +1253,8 @@ class TorchVectorStore:
                 "index_type": (self._ann_kind if (self.config.enable_ann
                                                   and self._ann is not None)
                                else "flat"),
-                "index_type_requested": self.config.ann_params.get(
-                    "index_type", "auto"),
+                "index_type_requested": ann_param(self.config.ann_params,
+                                                  "index_type"),
                 "storage_dtype": self.config.storage_dtype,
                 "device_capacity": self._cap,
                 "ann_recall_estimate": self._ann_recall_estimate,
