@@ -226,7 +226,7 @@ class _FakeLib:
     """Stands in for the built library: launches nothing."""
 
     def vdb_flat_scratch_bytes(self, q_n, k, count, chunk_rows):
-        return 1024 if k > cuda_scan.MAX_K_SMALL else 0
+        return 1024 if k > cuda_scan.MAX_K_SMALL and chunk_rows else 0
 
     def vdb_flat_topk(self, *args):
         return 0
@@ -238,9 +238,11 @@ class _FakeLib:
     (10, cuda_scan.KEY_SCRATCH_BYTES, None)])
 def test_scan_span_carries_the_chunks(monkeypatch, fresh_tracer, k, budget,
                                       chunks):
-    """``chunks`` on the caller's span: the row chunks the big-k plan
-    merged (64 queries over 10,000 rows: one chunk at the default key
-    scratch, four at a budget of 2,816 rows a query); none for k <= 32."""
+    """``chunks`` on the caller's span: the row chunks the key-scratch
+    plan merged (64 queries over 10,000 rows through the row loop, which
+    keeps the key scratch at every k > 32: one chunk at the default key
+    scratch, four at a budget of 2,816 rows a query), beside ``select``
+    ``radix``; neither for k <= 32."""
     monkeypatch.setattr(cuda_scan.LIBRARY, "lib", _FakeLib())
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (9, 0))
     monkeypatch.setattr(torch.cuda, "device",
@@ -249,8 +251,8 @@ def test_scan_span_carries_the_chunks(monkeypatch, fresh_tracer, k, budget,
                         lambda d: type("S", (), {"cuda_stream": 0})())
     db = torch.zeros((10000, 128), dtype=torch.int8)
     q = torch.zeros((64, 128))
-    plan = cuda_scan._launch_plan(64, torch.int8, 128, k, 10000,
-                                  budget=budget)
+    plan = cuda_scan._plan("loop", 64, torch.int8, 128, k, 10000,
+                           budget=budget)
     with profile(activities=[ProfilerActivity.CPU]):
         with tracing.span("store.scan", k=k):
             cuda_scan._launch(q, db, 128, 10000, k, "cosine", None, None,
@@ -259,6 +261,7 @@ def test_scan_span_carries_the_chunks(monkeypatch, fresh_tracer, k, budget,
                           plan)      # no span open: nothing to annotate
     (scan,) = tracing.spans()
     assert scan["attrs"].get("chunks") == chunks
+    assert scan["attrs"].get("select") == ("radix" if chunks else None)
     if chunks:
         assert plan.n_lists == chunks
 
@@ -271,30 +274,36 @@ def _need_card():
 
 @pytest.mark.gpu
 def test_chunked_big_k_equals_one_chunk_on_card(fresh_tracer):
-    """The cell's scan (int8 rows, 64 queries, k = 40) at a size that
-    fits one chunk of the key scratch, then with the budget cut so that
-    the rows go in four chunks that merge_topk_kernel combines: the
-    same keys and ids, bit for bit (a row's key does not depend on its
-    chunk), and ``chunks`` 1 and 4 on the scan's span."""
+    """The cell's scan (int8 rows, 64 queries, k = 40: the tile's lists)
+    against the key-scratch path at k = 100, in one chunk and with the
+    budget cut so that the rows go in four chunks that merge_topk_kernel
+    combines: the first 40 keys and ids the same, bit for bit (a row's
+    key depends on neither its chunk nor the select), and on the scan's
+    span ``select`` lists, radix, radix and ``chunks`` none, 1, 4."""
     _need_card()
     n, d, q_n, k = 100_000, 768, 64, 40
     rows = datagen.rows(CONFIG["data"], n, d, SEED, "cuda")
     db = torch.clamp(torch.round(rows * 127.0), -127, 127).to(torch.int8)
     q = datagen.query_pool(CONFIG["data"], q_n, d, SEED, "cuda")
-    got = {}
+    got = []
     with profile(activities=[ProfilerActivity.CPU]):
-        for budget in (cuda_scan.KEY_SCRATCH_BYTES, q_n * 25_600 * 4):
-            plan = cuda_scan._launch_plan(q_n, db.dtype, d, k, n,
+        for kk, budget in ((k, cuda_scan.KEY_SCRATCH_BYTES),
+                           (100, cuda_scan.KEY_SCRATCH_BYTES),
+                           (100, q_n * 25_600 * 4)):
+            plan = cuda_scan._launch_plan(q_n, db.dtype, d, kk, n,
                                           budget=budget)
-            with tracing.span("store.scan", k=k):
-                keys, ids = cuda_scan._launch(q, db, d, n, k, "cosine",
+            with tracing.span("store.scan", k=kk):
+                keys, ids = cuda_scan._launch(q, db, d, n, kk, "cosine",
                                               None, None, None, plan)
             torch.cuda.synchronize()
-            got[plan.n_lists] = (keys.cpu(), ids.cpu())
-    assert sorted(got) == [1, 4]
-    assert torch.equal(got[1][0], got[4][0])
-    assert torch.equal(got[1][1], got[4][1])
-    assert [s["attrs"]["chunks"] for s in tracing.spans()] == [1, 4]
+            got.append((keys[:, :k].cpu(), ids[:, :k].cpu()))
+    for keys, ids in got[1:]:
+        assert torch.equal(got[0][0].view(torch.int32), keys.view(torch.int32))
+        assert torch.equal(got[0][1], ids)
+    spans = tracing.spans()
+    assert [s["attrs"]["select"] for s in spans] == ["lists", "radix",
+                                                     "radix"]
+    assert [s["attrs"].get("chunks") for s in spans] == [None, 1, 4]
 
 
 @pytest.mark.gpu

@@ -286,7 +286,7 @@ def test_contract_errors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("k", [10, 40, 64, 100])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
 def test_kernel_matches_plain_on_card(dtype, k):
     """The CUDA kernel against its plain version on the card (runs where
@@ -445,6 +445,34 @@ def test_launch_plan_big_k_chunks(q_n, count, budget):
                                   1_000_000).n_lists == 1
 
 
+@pytest.mark.parametrize("k", [33, 40, 64])
+def test_launch_plan_lists_up_to_64_on_the_tile(k):
+    """32 < k <= MAX_K_LISTS on the tile (the capacity cell's scan: 64
+    queries, 8,388,608 int8 rows of 768): the scan keeps lists, one a
+    block per query, in one launch over every row, with no key scratch;
+    the launch is still counted as scan_kernel_bigk."""
+    plan = cuda_scan._launch_plan(64, torch.int8, 768, k, 8_388_608)
+    assert plan.design == "tile" and plan.chunk_rows == 0
+    assert plan.n_lists == plan.splits == 132
+    assert plan.splits * plan.rows_per_split >= 8_388_608
+    assert cuda_scan.kernel_name(k) == "scan_kernel_bigk"
+    assert cuda_scan.MAX_K_LISTS == 64
+
+
+@pytest.mark.parametrize("q_n,k", [(64, 65), (64, 100), (1, 40)])
+def test_launch_plan_key_scratch_past_the_lists(q_n, k):
+    """Past MAX_K_LISTS on the tile, and any k > 32 on the row loop
+    (batch 1), the keys go to the key scratch in chunks, as before: at
+    8,388,608 int8 rows of 768 and batch 64, four chunks."""
+    plan = cuda_scan._launch_plan(q_n, torch.int8, 768, k, 8_388_608)
+    assert plan.design == ("tile" if q_n == 64 else "loop")
+    assert plan.chunk_rows > 0
+    assert q_n * plan.chunk_rows * 4 <= cuda_scan.KEY_SCRATCH_BYTES
+    assert plan.n_lists == -(-8_388_608 // plan.chunk_rows)
+    assert plan.n_lists == (4 if q_n == 64 else 1)
+    assert cuda_scan.kernel_name(40) == "scan_kernel_bigk"
+
+
 class _FakeLib:
     """Stands in for the built library: records the calls of the C
     interface, launches nothing."""
@@ -453,22 +481,17 @@ class _FakeLib:
         self.calls = []
 
     def vdb_flat_scratch_bytes(self, q_n, k, count, chunk_rows):
-        return 1024 if k > cuda_scan.MAX_K_SMALL else 0
+        # the key scratch path's; the lists' merges need none
+        return 1024 if k > cuda_scan.MAX_K_SMALL and chunk_rows else 0
 
     def vdb_flat_topk(self, *args):
         self.calls.append(args)
         return 0
 
 
-@pytest.mark.parametrize("k,budget", [(10, cuda_scan.KEY_SCRATCH_BYTES),
-                                      (100, cuda_scan.KEY_SCRATCH_BYTES),
-                                      (100, 4 * 4096 * 4)])
-def test_launch_plan_one_launch_per_call(monkeypatch, k, budget):
-    """One call of the C interface and one recorded launch per flat_topk
-    call, whether k > 32 goes in one chunk or in several (a budget of 4096
-    rows a query forces 3 chunks over 10000 rows); the call carries the
-    plan's chunking and, with several chunks, candidate lists for the
-    merge."""
+def _fake_card(monkeypatch):
+    """The wrapper's calls into CUDA, stood in for: a ``_FakeLib`` as the
+    built library, returned."""
     fake = _FakeLib()
     monkeypatch.setattr(cuda_scan.LIBRARY, "lib", fake)
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (9, 0))
@@ -476,8 +499,24 @@ def test_launch_plan_one_launch_per_call(monkeypatch, k, budget):
         "contextlib").nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: type("S", (), {"cuda_stream": 0})())
-    x, q, _, _ = _inputs(13, 10000, 64, 4, "cosine", "float32")
-    plan = cuda_scan._launch_plan(4, torch.float32, 64, k, 10000,
+    return fake
+
+
+@pytest.mark.parametrize("k,budget", [(10, cuda_scan.KEY_SCRATCH_BYTES),
+                                      (100, cuda_scan.KEY_SCRATCH_BYTES),
+                                      (100, 4 * 4096 * 4),
+                                      (40, cuda_scan.KEY_SCRATCH_BYTES)])
+def test_launch_plan_one_launch_per_call(monkeypatch, k, budget):
+    """One call of the C interface and one recorded launch per flat_topk
+    call, whether k > 32 goes in one chunk or in several (a budget of 4096
+    rows a query forces 3 chunks over 10000 rows) or in the tile's lists
+    (k = 40 at batch 64); the call carries the plan's chunking and, with
+    several chunks or lists, candidate lists for the merge."""
+    fake = _fake_card(monkeypatch)
+    lists = cuda_scan.MAX_K_SMALL < k <= cuda_scan.MAX_K_LISTS
+    q_n = 64 if lists else 4    # the lists are the tile design's
+    x, q, _, _ = _inputs(13, 10000, 64, q_n, "cosine", "float32")
+    plan = cuda_scan._launch_plan(q_n, torch.float32, 64, k, 10000,
                                   budget=budget)
     name = cuda_scan.kernel_name(k)
     before = LAUNCHES[name]
@@ -487,12 +526,44 @@ def test_launch_plan_one_launch_per_call(monkeypatch, k, budget):
     assert len(fake.calls) == 1
     args = fake.calls[0]
     assert args[17:19] == (plan.n_lists, plan.chunk_rows)
-    if k > cuda_scan.MAX_K_SMALL:
+    if lists:
+        assert plan.design == "tile" and plan.chunk_rows == 0
+        assert args[14] == 1 and plan.n_lists == plan.splits > 1
+        assert args[19] is not None and args[20] is not None
+        assert args[23] is None                             # no scratch
+    elif k > cuda_scan.MAX_K_SMALL:
         assert plan.n_lists == (3 if budget < (1 << 20) else 1)
         assert (args[19] is None) == (plan.n_lists == 1)   # candidate lists
         assert args[23] is not None                         # scratch
     else:
         assert plan.chunk_rows == 0 and args[19] is not None
+
+
+@pytest.mark.parametrize("k,select", [(40, "lists"), (100, "radix"),
+                                      (10, None)])
+def test_scan_span_carries_the_select(monkeypatch, k, select):
+    """With the tracer on, a k > 32 launch says on the caller's span
+    (``store.scan``) how it selected: ``lists`` for k = 40 at batch 64 (the
+    tile's lists), ``radix`` for k = 100 (the key scratch); k <= 32 says
+    nothing. ``chunks`` stays only where there are chunks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_vector_db_torch.monitoring import tracing
+    _fake_card(monkeypatch)
+    x, q, _, _ = _inputs(14, 10000, 64, 64, "cosine", "float32")
+    plan = cuda_scan._launch_plan(64, torch.float32, 64, k, 10000)
+    tracing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            with tracing.span("store.scan", k=k):
+                cuda_scan._launch(torch.from_numpy(q), torch.from_numpy(x),
+                                  64, 10000, k, "cosine", None, None, None,
+                                  plan)
+        (scan,) = tracing.spans()
+    finally:
+        tracing.reset()
+    assert scan["attrs"].get("select") == select
+    assert scan["attrs"].get("chunks") == (1 if select == "radix" else None)
 
 
 def _card_db(x, dtype):
@@ -501,23 +572,25 @@ def _card_db(x, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 40, 64])
 @pytest.mark.parametrize("metric", ["cosine", "euclidean"])
 @pytest.mark.parametrize("q_n", [16, 64, 100])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
-def test_tile_matches_plain_on_card(dtype, q_n, metric):
+def test_tile_matches_plain_on_card(dtype, q_n, metric, k):
     """The tile design (scan_small_k_tile) against the plain version on
     the card, unmasked and masked, at a count that ends inside a row tile
-    and a split. Unit rows and queries: keys are O(1), so KEY_TOL holds
-    for f32 sums in another order (tensor cores sum bf16 products, exact
-    in f32, in their own order)."""
+    and a split; its lists of one entry a lane (k = 10) and of two (k = 40,
+    64). Unit rows and queries: keys are O(1), so KEY_TOL holds for f32
+    sums in another order (tensor cores sum bf16 products, exact in f32,
+    in their own order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     n, d, count = 20000, 256, 19000 - 7
     x, q, _, scales = _inputs(11, n, d, q_n, "cosine", dtype)
     db = _card_db(x, dtype)
-    assert cuda_scan._launch_plan(q_n, db.dtype, d, 10, count).design \
-        == "tile"
+    plan = cuda_scan._launch_plan(q_n, db.dtype, d, k, count)
+    assert plan.design == "tile" and plan.chunk_rows == 0
     scl = None if scales is None else torch.from_numpy(scales).cuda()
     sq = None
     if metric == "euclidean":
@@ -529,8 +602,8 @@ def test_tile_matches_plain_on_card(dtype, q_n, metric):
     for fm in (None, mask.cuda()):
         kw = dict(metric=metric, db_sqnorms=sq, filter_mask=fm,
                   db_scales=scl)
-        got = flat_topk(qt, db, count, 10, **kw)
-        want = flat_topk_plain(qt, db, count, 10, **kw)
+        got = flat_topk(qt, db, count, k, **kw)
+        want = flat_topk_plain(qt, db, count, k, **kw)
         torch.cuda.synchronize()
         got = [t.cpu().numpy() for t in got]
         assert_close_topk(got, [t.cpu().numpy() for t in want], KEY_TOL)
@@ -726,7 +799,7 @@ def test_big_k_fewer_live_rows_than_k_on_card(case, q_n):
     ("float32", "cosine", 1, 100),
     ("float32", "euclidean", 64, 100),
     ("bfloat16", "cosine", 64, 1025),
-    ("int4", "cosine", 3, 33),
+    ("int4", "cosine", 3, 65),           # the tile past its lists
     ("float32", "cosine", 2, 8193),       # several chunks, merge in device memory
 ])
 def test_big_k_several_chunks_on_card(dtype, metric, q_n, k):
@@ -752,3 +825,63 @@ def test_big_k_several_chunks_on_card(dtype, metric, q_n, k):
     # un-normalized euclidean rows: keys are O(d), so is their f32 rounding
     assert_close_topk(got, want, KEY_TOL * (d if metric == "euclidean"
                                             else 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", ["unit", "ints"])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+@pytest.mark.parametrize("dtype,q_n", [("float32", 16), ("float32", 32),
+                                       ("float32", 64), ("bfloat16", 64),
+                                       ("int8", 64), ("int4", 64)])
+def test_lists_equal_the_key_scratch_on_card(dtype, q_n, metric, data):
+    """The tile's lists (k = 33, 40, 64) against the key-scratch path at
+    k = 100 as the oracle: the first k keys and ids equal, bit for bit,
+    for every row type and query tile, cosine and euclidean, unmasked and
+    masked, at a count that ends inside a row tile. Each query is a stored
+    row planted 50 more times across the splits, so its ties straddle the
+    k-th key; ``ints`` rows (small integers, every sum exact) tie
+    everywhere besides."""
+    _need_card()
+    n, d = 60_000, 256
+    count = n - 5
+    rng = np.random.default_rng(21)
+    if data == "unit":
+        xf = rng.standard_normal((n, d)).astype(np.float32)
+        xf /= np.linalg.norm(xf, axis=1, keepdims=True)
+    else:
+        xf = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    src = rng.choice(count, q_n, replace=False)
+    for r in src:
+        xf[rng.choice(count, 50, replace=False)] = xf[r]
+    q = xf[src].copy()
+    sq = np.sum(xf * xf, axis=1) if metric == "euclidean" else None
+    scales = None
+    if dtype == "int8":
+        x = np.clip(np.round(xf * (127.0 if data == "unit" else 1.0)),
+                    -127, 127).astype(np.int8)
+    elif dtype == "int4":
+        packed, scales = jax_pack_int4(jnp.asarray(xf))
+        x, scales = np.array(packed), np.array(scales)
+    else:
+        x = xf
+    db = _card_db(x, dtype)
+    qt = torch.from_numpy(q).cuda()
+    mask = torch.from_numpy(
+        (rng.random(n) < 0.7).astype(np.float32)).cuda()
+    kw = dict(metric=metric,
+              db_sqnorms=None if sq is None else torch.from_numpy(sq).cuda(),
+              db_scales=None if scales is None
+              else torch.from_numpy(scales).cuda())
+    assert cuda_scan._launch_plan(q_n, db.dtype, d, 100, count).chunk_rows
+    for fm in (None, mask):
+        want = _on_card(flat_topk, qt, db, count, 100, filter_mask=fm, **kw)
+        for k in (33, 40, 64):
+            plan = cuda_scan._launch_plan(q_n, db.dtype, d, k, count)
+            assert plan.design == "tile" and plan.chunk_rows == 0
+            before = LAUNCHES["scan_kernel_bigk"]
+            keys, ids = _on_card(flat_topk, qt, db, count, k, filter_mask=fm,
+                                 **kw)
+            assert LAUNCHES["scan_kernel_bigk"] == before + 1
+            np.testing.assert_array_equal(keys.view(np.int32),
+                                          want[0][:, :k].view(np.int32))
+            np.testing.assert_array_equal(ids, want[1][:, :k])

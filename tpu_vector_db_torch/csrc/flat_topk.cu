@@ -6,7 +6,10 @@
 //   _scan_kernel       (k <= 32) -> scan_small_k (small Q) or
 //                                   scan_small_k_tile (larger Q),
 //                                   then merge_small_k
-//   _scan_kernel_bigk  (k > 32)  -> the same two scoring kernels with a
+//   _scan_kernel_bigk  (k > 32)  -> up to k = 64 on the tile,
+//                                   scan_small_k_tile with lists of two
+//                                   entries a lane, then merge_topk_kernel;
+//                                   else the same two scoring kernels with a
 //                                   "store keys" epilogue, then the radix
 //                                   select of radix_select.cuh
 // The TPU big-k kernel stops at k = 1024; this one takes any k, so the
@@ -67,9 +70,15 @@
 //    a ballot against the query's k-th best (the TPU kernel's threshold
 //    skip) and an insert for each passing row. The lists stay in
 //    registers across tiles; the block writes one list per query.
-//  * k > 32: the same two scoring kernels, picked by the same rule, with
-//    the epilogue templated: in place of the per-warp lists each block
-//    writes its keys, transformed as above, to a (Q, chunk rows) f32 key
+//  * 32 < k <= 64 on the tile: the same lists with two entries a lane
+//    (lane j holds entries j and 32 + j), so the keys never leave the
+//    block: a key scratch would be written once and read four times by
+//    the select, 1.7x the stored rows' bytes for int8 rows at Q = 64.
+//    merge_topk_kernel combines the splits' lists.
+//  * any other k > 32: the same two scoring kernels, picked by the same
+//    rule, with the epilogue templated: in place of the per-warp lists
+//    each block writes its keys, transformed as above, to a (Q, chunk
+//    rows) f32 key
 //    scratch in device memory, 16-byte runs along rows (the row loop
 //    stages a tile's keys in shared memory first). A radix select then
 //    takes each query's exact top-k in a few passes over the keys, with
@@ -80,10 +89,10 @@
 //  * k <= 32: merge_small_k merges the splits' lists, one block of warps a
 //    query, each warp a register list over its slice of the candidates, a
 //    block-wide bound on the k-th key and a merge tree of the warp lists
-//    (topk_common.cuh). k > 32 chunks: merge_topk_kernel keeps the sorted
-//    best next_pow2(k) plus an equal candidate area (at least 4096 slots),
-//    in shared memory up to 16384 slots and in device-memory scratch past
-//    that.
+//    (topk_common.cuh). The tile's lists at k <= 64 and k > 32 chunks:
+//    merge_topk_kernel keeps the sorted best next_pow2(k) plus an equal
+//    candidate area (at least 4096 slots), in shared memory up to 16384
+//    slots and in device-memory scratch past that.
 //  * Order is key descending, then id ascending, everywhere. The TPU
 //    kernel's first-occurrence rule gives exactly this because its ids rise
 //    in scan order; with the explicit rule the result does not depend on
@@ -138,6 +147,7 @@ __device__ void load_queries(const ScanArgs& a, int q0, float* qs, float* qsum8)
 }
 
 #define TILE_ROWS 256
+#define MAX_K_LISTS 64                // the tile's lists: two entries a lane
 #define STAGE_ROW 144                 // bytes of a staged row: 128 + 16 of pad
 #define KEY_STRIDE (TILE_ROWS + 4)    // floats of a query's keys in a tile
 
@@ -537,12 +547,13 @@ struct MmaTile {
 };
 
 // The tile's keys of this warp's QW queries, in rising row order, into its
-// sorted lists: 32 rows at a time, a ballot against each query's k-th best,
-// then an insert for each row that still beats it.
-template <int DT, int QW>
+// sorted lists of E entries a lane (warp_insert): 32 rows at a time, a
+// ballot against each query's k-th best, then an insert for each row that
+// still beats it.
+template <int DT, int QW, int E>
 __device__ __forceinline__ void tile_select(const ScanArgs& a, const float* K,
                                             const float* qsum8, int row0, int r1, int warp,
-                                            int lane, float (&val)[QW], int (&id)[QW]) {
+                                            int lane, float (&val)[QW][E], int (&id)[QW][E]) {
   constexpr int C = TILE_ROWS / 32;
   float scl[C], sqn[C];
   bool live[C];
@@ -557,7 +568,7 @@ __device__ __forceinline__ void tile_select(const ScanArgs& a, const float* K,
   for (int j = 0; j < QW; j++) {
     const int qq = warp * QW + j;
     const float qs8 = DT == DT_I4 ? qsum8[qq] : 0.f;
-    float thr = __shfl_sync(FULL, val[j], a.k - 1);
+    float thr = kth_key<E>(val[j], a.k);
     float key[C];
     bool pass = false;
 #pragma unroll
@@ -580,18 +591,18 @@ __device__ __forceinline__ void tile_select(const ScanArgs& a, const float* K,
         m &= m - 1;
         const float sk = __shfl_sync(FULL, key[c], src);
         if (sk > thr) {
-          warp_insert(val[j], id[j], sk, row0 + c * 32 + src, a.k, lane);
-          thr = __shfl_sync(FULL, val[j], a.k - 1);
+          warp_insert<E>(val[j], id[j], sk, row0 + c * 32 + src, a.k, lane);
+          thr = kth_key<E>(val[j], a.k);
         }
       }
     }
   }
 }
 
-// STORE false (k <= 32): candidates out (Q, splits, k), one list per
-// (block, query). STORE true (k > 32): each row tile's keys to the key
-// scratch (store_keys).
-template <int DT, int QT, bool STORE>
+// STORE false: candidates out (Q, splits, k), one list per (block, query),
+// of E entries a lane: 1 for k <= 32, 2 for 32 < k <= 64. STORE true (any
+// other k > 32): each row tile's keys to the key scratch (store_keys).
+template <int DT, int QT, bool STORE, int E = 1>
 __global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
   extern __shared__ __align__(16) uint8_t tsmem[];
   constexpr int SLOT = slot_bytes<DT, QT>();
@@ -619,10 +630,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
       if (lane == 0) qsum8[qq] = 8.f * s;
     }
   }
-  float val[QW];
-  int id[QW];
+  float val[QW][E];
+  int id[QW][E];
 #pragma unroll
-  for (int j = 0; j < QW; j++) { val[j] = neg_inf(); id[j] = 0; }
+  for (int j = 0; j < QW; j++)
+#pragma unroll
+    for (int e = 0; e < E; e++) { val[j][e] = neg_inf(); id[j][e] = 0; }
 
   typename std::conditional<DT == DT_F32, FmaTile<QT>, MmaTile<DT, QT>>::type tile;
 #pragma unroll
@@ -647,17 +660,21 @@ __global__ void __launch_bounds__(THREADS, 1) scan_small_k_tile(ScanArgs a) {
       if constexpr (STORE)
         store_keys<DT, QT, true>(a, K, qsum8, q0, r0 + t * TILE_ROWS, r1);
       else
-        tile_select<DT, QW>(a, K, qsum8, r0 + t * TILE_ROWS, r1, warp, lane, val, id);
+        tile_select<DT, QW, E>(a, K, qsum8, r0 + t * TILE_ROWS, r1, warp, lane, val, id);
     }
   }
   if constexpr (!STORE) {
 #pragma unroll
     for (int j = 0; j < QW; j++) {
       const int qq = q0 + warp * QW + j;
-      if (qq < a.Q && lane < a.k) {
-        const size_t o = ((size_t)qq * gridDim.y + blockIdx.y) * a.k + lane;
-        a.cand_keys[o] = val[j];
-        a.cand_ids[o] = id[j];
+#pragma unroll
+      for (int e = 0; e < E; e++) {
+        const int g = 32 * e + lane;  // entry g of the list
+        if (qq < a.Q && g < a.k) {
+          const size_t o = ((size_t)qq * gridDim.y + blockIdx.y) * a.k + g;
+          a.cand_keys[o] = val[j][e];
+          a.cand_ids[o] = id[j][e];
+        }
       }
     }
   }
@@ -674,51 +691,56 @@ static cudaError_t launch_loop(const ScanArgs& a, int splits, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int DT, int QT, bool STORE>
+template <int DT, int QT, bool STORE, int E>
 static cudaError_t launch_tile(const ScanArgs& a, int splits, cudaStream_t st) {
   constexpr size_t smem = tile_smem_bytes<DT, QT>();
   static_assert(smem <= MAX_SMEM, "tile does not fit in shared memory");
   if (a.d_pad % stage_comps<DT>() || (DT != DT_F32 && !a.q16)) return cudaErrorInvalidValue;
   const dim3 grid((a.Q + QT - 1) / QT, splits);
-  cudaFuncSetAttribute(scan_small_k_tile<DT, QT, STORE>,
+  cudaFuncSetAttribute(scan_small_k_tile<DT, QT, STORE, E>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  scan_small_k_tile<DT, QT, STORE><<<grid, THREADS, smem, st>>>(a);
+  scan_small_k_tile<DT, QT, STORE, E><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // The scoring launch: qt 1..8 the row loop scan_small_k; tile:
 // scan_small_k_tile, f32 at qt 16, 32 or 64, the tensor-core types at 64.
-template <int DT, bool STORE>
+// E: entries a lane of the lists (2 only on the tile).
+template <int DT, bool STORE, int E>
 static cudaError_t launch_dt(const ScanArgs& a, int qt, int splits, int tile, cudaStream_t st) {
   if (tile) {
     if constexpr (DT != DT_F32) {
-      return qt == 64 ? launch_tile<DT, 64, STORE>(a, splits, st) : cudaErrorInvalidValue;
+      return qt == 64 ? launch_tile<DT, 64, STORE, E>(a, splits, st) : cudaErrorInvalidValue;
     } else {
       switch (qt) {
-        case 16: return launch_tile<DT, 16, STORE>(a, splits, st);
-        case 32: return launch_tile<DT, 32, STORE>(a, splits, st);
-        case 64: return launch_tile<DT, 64, STORE>(a, splits, st);
+        case 16: return launch_tile<DT, 16, STORE, E>(a, splits, st);
+        case 32: return launch_tile<DT, 32, STORE, E>(a, splits, st);
+        case 64: return launch_tile<DT, 64, STORE, E>(a, splits, st);
         default: return cudaErrorInvalidValue;
       }
     }
   }
-  switch (qt) {
-    case 1: return launch_loop<DT, 1, STORE>(a, splits, st);
-    case 2: return launch_loop<DT, 2, STORE>(a, splits, st);
-    case 4: return launch_loop<DT, 4, STORE>(a, splits, st);
-    case 8: return launch_loop<DT, 8, STORE>(a, splits, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (E != 1) {
+    return cudaErrorInvalidValue;
+  } else {
+    switch (qt) {
+      case 1: return launch_loop<DT, 1, STORE>(a, splits, st);
+      case 2: return launch_loop<DT, 2, STORE>(a, splits, st);
+      case 4: return launch_loop<DT, 4, STORE>(a, splits, st);
+      case 8: return launch_loop<DT, 8, STORE>(a, splits, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
-template <bool STORE>
+template <bool STORE, int E = 1>
 static cudaError_t launch_scoring(const ScanArgs& a, int dtype, int qt, int splits, int tile,
                                   cudaStream_t st) {
   switch (dtype) {
-    case DT_F32: return launch_dt<DT_F32, STORE>(a, qt, splits, tile, st);
-    case DT_BF16: return launch_dt<DT_BF16, STORE>(a, qt, splits, tile, st);
-    case DT_I8: return launch_dt<DT_I8, STORE>(a, qt, splits, tile, st);
-    case DT_I4: return launch_dt<DT_I4, STORE>(a, qt, splits, tile, st);
+    case DT_F32: return launch_dt<DT_F32, STORE, E>(a, qt, splits, tile, st);
+    case DT_BF16: return launch_dt<DT_BF16, STORE, E>(a, qt, splits, tile, st);
+    case DT_I8: return launch_dt<DT_I8, STORE, E>(a, qt, splits, tile, st);
+    case DT_I4: return launch_dt<DT_I4, STORE, E>(a, qt, splits, tile, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -756,8 +778,8 @@ static BigScratch big_scratch(int Q, int k, int chunk_rows, int n_chunks) {
   return b;
 }
 
-// Bytes of scratch vdb_flat_topk needs: 0 for k <= 32 (its merge fits in
-// shared memory).
+// Bytes of scratch vdb_flat_topk needs: 0 for k <= 32 and for the tile's
+// lists at k <= 64 (chunk_rows 0): their merges fit in shared memory.
 extern "C" long long vdb_flat_scratch_bytes(int Q, int k, int count, int chunk_rows) {
   if (k <= 32 || Q < 1 || chunk_rows < 1) return 0;
   return (long long)big_scratch(Q, k, chunk_rows, n_chunks_of(count, chunk_rows)).total;
@@ -770,10 +792,12 @@ extern "C" long long vdb_flat_scratch_bytes(int Q, int k, int count, int chunk_r
 // for scan_small_k_tile. out_*: (Q, k).
 //  * k <= 32: cand_*: (Q, n_lists, k); the launch is refused unless n_lists
 //    is what the scan writes: splits * WARPS for the row loop, else splits.
-//  * k > 32: the rows are scored and selected in chunks of chunk_rows (a
-//    multiple of TILE_ROWS; rows_per_split a multiple of 4), and n_lists
-//    must be the number of chunks; cand_* (Q, n_lists, k) hold the chunks'
-//    lists when there are several (else may be null). scratch:
+//  * 32 < k <= MAX_K_LISTS on the tile, chunk_rows 0: the same, n_lists =
+//    splits (lists of two entries a lane), merged by merge_topk_kernel.
+//  * any other k > 32: the rows are scored and selected in chunks of
+//    chunk_rows (a multiple of TILE_ROWS; rows_per_split a multiple of 4),
+//    and n_lists must be the number of chunks; cand_* (Q, n_lists, k) hold
+//    the chunks' lists when there are several (else may be null). scratch:
 //    vdb_flat_scratch_bytes(Q, k, count, chunk_rows) bytes.
 extern "C" int vdb_flat_topk(const float* q, const uint16_t* q16, int Q, int d_pad,
                              const void* db, int dtype, int row_bytes, int count,
@@ -783,11 +807,14 @@ extern "C" int vdb_flat_topk(const float* q, const uint16_t* q16, int Q, int d_p
                              float* cand_keys, int* cand_ids, float* out_keys, int* out_ids,
                              void* scratch, void* stream) {
   const int big = k > 32;
+  const int lists = big && chunk_rows == 0;  // the tile's lists, no key scratch
   if (count < 0) count = 0;
   if (k < 1 || Q < 1 || splits < 1 || row_bytes % 16 || (euclid && !sq) ||
       (dtype == DT_I4 && !scales))
     return cudaErrorInvalidValue;
-  if (big ? (chunk_rows < 1 || chunk_rows % TILE_ROWS || rows_per_split % 4 ||
+  if (lists && (!tile || k > MAX_K_LISTS || !cand_keys || !cand_ids))
+    return cudaErrorInvalidValue;
+  if (big && !lists ? (chunk_rows < 1 || chunk_rows % TILE_ROWS || rows_per_split % 4 ||
              (long long)splits * rows_per_split < (count < chunk_rows ? count : chunk_rows) ||
              n_lists != n_chunks_of(count, chunk_rows) || !scratch ||
              (n_lists > 1 && (!cand_keys || !cand_ids)))
@@ -810,6 +837,12 @@ extern "C" int vdb_flat_topk(const float* q, const uint16_t* q16, int Q, int d_p
     if (err != cudaSuccess) return err;
     return launch_merge_small(cand_keys, cand_ids, Q, n_lists * k, k, out_keys, out_ids, 0,
                               st);
+  }
+  if (lists) {  // merge_len(k) = MERGE_MIN_LEN: the merge's area is shared memory
+    err = launch_scoring<false, 2>(a, dtype, qt, splits, tile, st);
+    if (err != cudaSuccess) return err;
+    return launch_merge(cand_keys, cand_ids, Q, n_lists * k, k, nullptr, nullptr, out_keys,
+                        out_ids, 0, st);
   }
   const BigScratch b = big_scratch(Q, k, chunk_rows, n_lists);
   uint8_t* base = static_cast<uint8_t*>(scratch);

@@ -2,8 +2,8 @@
 // the warp's dot product of one stored row against queries held in shared
 // memory, the PTX wrappers of cp.async, ldmatrix and mma.sync, a
 // block-wide bitonic sort and the two per-query merges of candidate lists:
-// merge_small_k (k <= 32, warp lists) and merge_topk_kernel (any k, the
-// k > 32 chunk merge).
+// merge_small_k (k <= 32, warp lists) and merge_topk_kernel (any k: the
+// k > 32 chunk merge and the merge of the tile's lists at k <= 64).
 //
 // Order everywhere is key descending, then id ascending. Slots that hold no
 // row carry key -inf and id INT_MAX while they are being sorted.
@@ -189,6 +189,36 @@ __device__ __forceinline__ void warp_insert(float& val, int& id, float s, int si
   else if (lane > pos && lane < k) { val = up_v; id = up_i; }
 }
 
+// The same for a list of E entries a lane: lane j holds entries j and, with
+// E = 2 (32 < k <= 64), 32 + j. The place is the sum of the two halves'
+// ballots; the shift rotates each half by one lane, so lane 0 of the
+// second half takes entry 31 from the first.
+template <int E>
+__device__ __forceinline__ void warp_insert(float (&val)[E], int (&id)[E], float s, int sid,
+                                            int k, int lane) {
+  static_assert(E == 1 || E == 2, "one or two entries a lane");
+  if constexpr (E == 1) {
+    warp_insert(val[0], id[0], s, sid, k, lane);
+  } else {
+    const int pos = __popc(__ballot_sync(FULL, before(val[0], id[0], s, sid))) +
+                    __popc(__ballot_sync(FULL, 32 + lane < k && before(val[1], id[1], s, sid)));
+    const int from = (lane + 31) & 31;
+    const float r0 = __shfl_sync(FULL, val[0], from), r1 = __shfl_sync(FULL, val[1], from);
+    const int i0 = __shfl_sync(FULL, id[0], from), i1 = __shfl_sync(FULL, id[1], from);
+    if (lane == pos) { val[0] = s; id[0] = sid; }
+    else if (lane > pos) { val[0] = r0; id[0] = i0; }
+    const int g = 32 + lane;
+    if (g == pos) { val[1] = s; id[1] = sid; }
+    else if (g > pos && g < k) { val[1] = lane ? r1 : r0; id[1] = lane ? i1 : i0; }
+  }
+}
+
+// Entry k - 1 of a list of E entries a lane (the threshold of an insert).
+template <int E>
+__device__ __forceinline__ float kth_key(const float (&val)[E], int k) {
+  return __shfl_sync(FULL, val[E - 1], k - 1 - 32 * (E - 1));
+}
+
 // Bitonic sort, key descending then id ascending, of n_regions regions of
 // length L (a power of two) laid out back to back, in shared or device
 // memory. All threads of the block take part; ends synchronized.
@@ -230,7 +260,7 @@ inline int merge_len(int k) {
 #define MERGE_SMEM_MAX_LEN 16384
 
 // One block per query: the best k of its n_cand candidates (the k > 32
-// chunk merge of flat_topk.cu). Candidates
+// merges of flat_topk.cu). Candidates
 // that cannot beat the running k-th best are dropped on load; the rest
 // collect in the working area of ml slots (dynamic shared memory, or
 // scratch + blockIdx.x * ml in device memory when scratch is given) and

@@ -10,13 +10,16 @@ with the same contract. The kernels are ``csrc/flat_topk.cu``:
   tiles of 256 rows against up to 64 queries, f32 by register-tiled FFMA
   and bf16/int8/int4 on the tensor cores (``scan_small_k_tile``). Both
   count as one ``scan_kernel`` launch;
-* ``scan_kernel_bigk`` (k > 32) replaces ``_scan_kernel_bigk``: the same
-  two scoring designs, picked by the same rule, write each query's keys
-  to a key scratch in device memory, and a radix select takes the exact
-  top-k (``csrc/radix_select.cuh``). Past ``KEY_SCRATCH_BYTES`` of keys
-  the rows go in chunks whose top-k lists a merge combines. The TPU
-  kernel stops at k = 1024, where the JAX store turns to its XLA scan;
-  this kernel takes any k, so the store serves every k on the card.
+* ``scan_kernel_bigk`` (k > 32) replaces ``_scan_kernel_bigk``, with the
+  same two scoring designs picked by the same rule. Up to
+  ``MAX_K_LISTS`` the tile keeps its lists in registers as k <= 32 does,
+  two entries a lane, and a merge combines the blocks' lists. Otherwise
+  each query's keys go to a key scratch in device memory, and a radix
+  select takes the exact top-k (``csrc/radix_select.cuh``); past
+  ``KEY_SCRATCH_BYTES`` of keys the rows go in chunks whose top-k lists
+  a merge combines. The TPU kernel stops at k = 1024, where the JAX
+  store turns to its XLA scan; this kernel takes any k, so the store
+  serves every k on the card.
 
 ``flat_topk`` launches the kernel for a CUDA tensor and uses
 ``flat_topk_plain`` only for a tensor on the CPU. Each launch adds one to
@@ -46,6 +49,9 @@ from tpu_vector_db_torch.ops.scan import scan_blocks
 from tpu_vector_db_torch.ops.topk import MERGE_SMALL_MAX_K, NEG_INF
 
 MAX_K_SMALL = MERGE_SMALL_MAX_K  # scan_kernel: per-warp register lists
+# scan_kernel_bigk on the tile design up to this k: the same lists with two
+# entries a lane, no key scratch (csrc/flat_topk.cu MAX_K_LISTS)
+MAX_K_LISTS = 64
 # the tile design from this batch up, by row type (chip_smoke.py's
 # crossover lines time both designs at batch 2-16). f32: up to batch 8 the
 # row loop reads the rows once and is bound by bytes, as the tile is by
@@ -80,9 +86,11 @@ class LaunchPlan(NamedTuple):
     """How ``flat_topk`` launches: scoring ``design`` "loop"
     (scan_small_k) or "tile" (scan_small_k_tile), queries per block
     ``qt``, ``splits`` row ranges of ``rows_per_split`` rows, and the
-    candidate lists per query the merge combines (``n_lists``). k > 32:
-    rows are scored and selected ``chunk_rows`` at a time (a key scratch
-    of Q x chunk_rows f32), one list per chunk; 0 for k <= 32."""
+    candidate lists per query the merge combines (``n_lists``). k > 32
+    through the key scratch: rows are scored and selected ``chunk_rows``
+    at a time (a key scratch of Q x chunk_rows f32), one list per chunk;
+    0 where the scan keeps lists (k <= 32, and the tile up to
+    MAX_K_LISTS)."""
     design: str
     qt: int
     splits: int
@@ -113,8 +121,9 @@ def _launch_plan(q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
                  budget: int = KEY_SCRATCH_BYTES) -> LaunchPlan:
     """The scoring design and launch shape for a call: the tile from
     TILE_MIN_Q queries of the row type (d_pad a multiple of its stage),
-    else the row loop; past MAX_K_SMALL the keys go to the radix select,
-    in chunks that keep the key scratch within ``budget`` bytes."""
+    else the row loop; past MAX_K_SMALL (on the tile, past MAX_K_LISTS)
+    the keys go to the radix select, in chunks that keep the key scratch
+    within ``budget`` bytes."""
     if q_n >= TILE_MIN_Q[db_dtype] and d_pad % _TILE_COMPS.get(
             db_dtype, _TILE_COMPS_MMA) == 0:
         design = "tile"
@@ -130,7 +139,8 @@ def _plan(design: str, q_n: int, db_dtype: torch.dtype, d_pad: int, k: int,
     design; chip_smoke.py's crossover lines time both at the same
     batch)."""
     count = max(0, count)
-    chunk = _chunk_rows(q_n, count, budget) if k > MAX_K_SMALL else 0
+    lists = k <= (MAX_K_LISTS if design == "tile" else MAX_K_SMALL)
+    chunk = 0 if lists else _chunk_rows(q_n, count, budget)
     rows = min(count, chunk) if chunk else count  # rows of one launch
     n_chunks = max(1, _cdiv(count, chunk)) if chunk else 0
     if design == "tile":
@@ -242,9 +252,9 @@ def _f32_on(t, device, n):
 
 def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
             db_scales, plan: LaunchPlan | None = None):
-    """One call of the kernel on db's card (scan + merge for k <= 32,
-    scan + select per chunk, and a merge of several chunks, for k > 32),
-    shaped by ``plan`` (``_launch_plan``'s when None)."""
+    """One call of the kernel on db's card (scan + merge where the scan
+    keeps lists, else scan + select per chunk, and a merge of several
+    chunks), shaped by ``plan`` (``_launch_plan``'s when None)."""
     if torch.cuda.get_device_capability(db.device) != (9, 0):
         raise RuntimeError(
             "csrc/flat_topk.cu is built for sm_90a (Hopper); device "
@@ -276,7 +286,7 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     mask = _f32_on(filter_mask, dev, count)
     scales = _f32_on(db_scales, dev, count)
 
-    # k <= 32: the splits' lists; k > 32: the chunks' lists, when several
+    # lists: the splits'; key scratch: the chunks', when several
     cand_keys = cand_ids = None
     if plan.chunk_rows == 0 or plan.n_lists > 1:
         cand_keys = torch.empty((q_n, plan.n_lists, k), dtype=torch.float32,
@@ -285,7 +295,7 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
                                device=dev)
     keys = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((q_n, k), dtype=torch.int32, device=dev)
-    # k > 32: key scratch, histograms, survivors (and merge areas)
+    # key scratch, histograms, survivors (and merge areas); none for lists
     n_bytes = lib.vdb_flat_scratch_bytes(q_n, k, count, plan.chunk_rows)
     scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev) \
         if n_bytes else None
@@ -305,9 +315,12 @@ def _launch(queries, db, d_pad, count, k, metric, db_sqnorms, filter_mask,
     if err != 0:
         raise RuntimeError(f"flat_topk kernel failed: CUDA error {err}")
     record(kernel_name(k))
+    if k > MAX_K_SMALL:
+        # on the caller's span (``store.scan``): how the launch selected
+        tracing.annotate("select", "radix" if plan.chunk_rows else "lists")
     if plan.chunk_rows:
         # k > 32: the row chunks whose lists the merge combined (1: one
-        # launch scored every row), on the caller's span (``store.scan``)
+        # launch scored every row)
         tracing.annotate("chunks", plan.n_lists)
     return keys, ids
 
