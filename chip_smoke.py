@@ -167,7 +167,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    after the path's launch counts are read);
 5. prints one JSON line of the kernels (launches from each kernel's
    headline path: ``main`` for the flat kernels, ``ivf`` for the IVF
-   kernel, ``sharded`` for ``merge_small_k`` alone, the k·P merge; and
+   kernel, ``capacity`` for the gather layout's IVF kernel (held on the
+   int8 capacity store's own rows, id table and selection at k 5, 10
+   and 40, batches 1, 8 and 16), ``sharded`` for ``merge_small_k``
+   alone, the k·P merge; and
    each path's count in ``launches_by_path``), the
    card's name and power limit, and last ``{"ok": true,
    "device": {...}}``.
@@ -205,19 +208,23 @@ KEY_TOL = 1e-4
 SOURCE = {"scan_kernel": "tpu_vector_db_torch/csrc/flat_topk.cu",
           "scan_kernel_bigk": "tpu_vector_db_torch/csrc/flat_topk.cu",
           "ivf_kernel": "tpu_vector_db_torch/csrc/ivf_topk.cu",
+          "ivf_gather_kernel": "tpu_vector_db_torch/csrc/ivf_topk.cu",
           "merge_small_k": "tpu_vector_db_torch/csrc/topk_common.cuh"}
 # merge_small_k alone is the sharded paths' k·P merge, where the JAX
-# package merges with lax.top_k (XLA, not a Pallas kernel)
+# package merges with lax.top_k (XLA, not a Pallas kernel); the gather
+# probe is an XLA gather + einsum there too
 REPLACES = {"scan_kernel": "tpu_vector_db/ops/pallas_scan.py:112",
             "scan_kernel_bigk": "tpu_vector_db/ops/pallas_scan.py:259",
             "ivf_kernel": "tpu_vector_db/ops/ivf_scan.py:40",
+            "ivf_gather_kernel": "tpu_vector_db/ops/ivf_scan.py:152",
             "merge_small_k": "tpu_vector_db/parallel/sharded_scan.py:86"}
 # the path whose launch counts stand in the kernels line, and the case its
 # timings come from: the shape that path gives the kernel (flat top-10 at
 # batch 64 and top-100 at batch 1 on the main path; an IVF top-10 query at
 # batch 1 on the ivf path's own index, timed there)
 HEADLINE_PATH = {"scan_kernel": "main", "scan_kernel_bigk": "main",
-                 "ivf_kernel": "ivf", "merge_small_k": "sharded"}
+                 "ivf_kernel": "ivf", "ivf_gather_kernel": "capacity",
+                 "merge_small_k": "sharded"}
 HEADLINE = {"scan_kernel": ("float32", 64, 10),
             "scan_kernel_bigk": ("float32", 1, 100)}
 LIBRARIES = ("flat_topk", "ivf_topk")
@@ -227,6 +234,11 @@ IVF_YARDSTICK = "index_select + bmm + topk (composition)"
 # the kernels a call launches once, for profile_device: a flat call's
 # scoring kernel (and for k <= 32 its merge), an IVF probe's two kernels
 EXPECT_IVF = ("ivf_scan_kernel", "merge_small_k")
+
+
+def expect_gather(k: int) -> tuple[str, ...]:
+    return ("ivf_gather_kernel",
+            "merge_small_k" if k <= 32 else "merge_topk_kernel")
 # device_ms: traces of one call taken at most, and how far (a share of
 # their median) the three that are believed may lie apart
 TRACES_MAX = 6
@@ -1392,6 +1404,67 @@ def hold_index(store, path: str, queries: np.ndarray, k: int, errs: dict,
     return out
 
 
+def hold_gather(store, path: str, queries: np.ndarray, k: int, errs: dict,
+                timed: bool = False) -> dict:
+    """The gather layout's IVF kernel (``ivf_gather_topk``) against its
+    plain version (``ivf_probe_topk_gather``) on the store's own index:
+    its rows (and int4 scales), id table and fills, and the buckets its
+    centroids select for these queries at the store's nprobe. Keys are
+    compared on the cosine scale (int8 raw keys over 127). With
+    ``timed``, kernel and plain times, the device time and the bound."""
+    import torch
+    from tpu_vector_db_torch.index.ivf import _select_buckets
+    from tpu_vector_db_torch.ops import ivf_scan
+    from tpu_vector_db_torch.ops.launches import LAUNCHES
+    ann = store._ann
+    ann._ensure_device(store._db, store._sqnorms)  # current after an add
+    dev = ann._dev
+    nprobe = min(store.config.ann_params.get("nprobe") or ann.nprobe,
+                 dev["ids"].shape[0])
+    q = store._prepare_queries(queries)
+    sel = _select_buckets(q, dev["centroids"], dev["bucket_cluster"], nprobe,
+                          store.metric, dev["c_sqnorms"])
+    db, scales = store._db, store._scales
+    args = (q, db, dev["ids"], dev["fills"], sel, k)
+
+    def kernel():
+        return ivf_scan.ivf_gather_topk(*args, db_scales=scales)
+
+    def plain():
+        return ivf_scan.ivf_probe_topk_gather(q, db, dev["ids"], sel, k,
+                                              db_scales=scales)
+    before = LAUNCHES["ivf_gather_kernel"]
+    keys, got_ids = kernel()
+    launches = LAUNCHES["ivf_gather_kernel"] - before
+    pkeys, pids = plain()
+    unit = 1.0 / 127.0 if db.dtype == torch.int8 else 1.0
+    err, keys_ok, ids_ok = compare(keys * unit, got_ids, pkeys * unit, pids,
+                                   "cosine")
+    dtype = {torch.int8: "int8", torch.uint8: "int4"}.get(
+        db.dtype, str(db.dtype).replace("torch.", ""))
+    out = {"kernel": "ivf_gather_kernel", "phase": "hold", "path": path,
+           "Q": q.shape[0], "nprobe": sel.shape[1], "k": k,
+           "NB": dev["ids"].shape[0], "Bc": dev["ids"].shape[1],
+           "rows": store._count, "d": q.shape[1], "dtype": dtype,
+           "max_abs_err": err, "key_tol": KEY_TOL, "keys_ok": keys_ok,
+           "ids_ok": ids_ok, "launches": launches}
+    if timed:
+        out["kernel_ms"] = cuda_ms(kernel, 10)
+        out["plain_ms"] = cuda_ms(plain, 2)
+        out["bound_ms"], out["bound_by"] = ivf_bound(
+            dev["fills"], sel, db.shape[1] * db.element_size(), q.shape[1],
+            k, dtype)
+        out.update(device_ms(kernel, 10, expect_gather(k), out["bound_ms"]))
+    emit(out)
+    errs["ivf_gather_kernel"] = max(errs.get("ivf_gather_kernel", 0.0), err)
+    check(launches == 1,
+          f"ivf_gather_kernel launched {launches} times in one call")
+    check(keys_ok and ids_ok, f"ivf_gather_kernel disagrees with its plain "
+          f"version ({path}, Q={q.shape[0]} nprobe={sel.shape[1]} k={k}, "
+          f"key error {err})")
+    return out
+
+
 def path_ivf(g, tmp: Path, counts: dict, errs: dict) -> dict:
     """BASELINE config #3's regime: 1M x 768 f32 cosine clustered rows in
     the default store with enable_ann=True. Returns the IVF kernel's
@@ -2340,6 +2413,11 @@ def hold_example(name: str, out: dict, errs: dict) -> set[str]:
         if name == "ivf_index":
             hold_index(store, "examples", out["queries"][:1], 10, errs)
             held.add("ivf_kernel")
+        if name == "capacity_mode" and store._ann is not None \
+                and store._ann.built:
+            for q_n, k in ((1, 5), (16, 40)):
+                hold_gather(store, "examples", rows[:q_n], k, errs)
+            held.add("ivf_gather_kernel")
         if name == "quickstart":
             hold_store(store, "examples", rows[42:43], 3, errs,
                        {"lang": "de"})
@@ -4162,10 +4240,11 @@ def capacity_fill(store, g, n: int, make_rows, rng, meta) -> tuple:
     return qs, gt, add_s
 
 
-def capacity_int8(g, rng, tmp: Path, n: int, errs: dict) -> None:
+def capacity_int8(g, rng, tmp: Path, n: int, errs: dict) -> dict:
     """16M x 768 cosine int8 (or its cut) with enable_ann=True: the IVF
     in its gather layout, exact, reranked and IVF queries against an f32
-    ground truth, a 1% filter, 0.1% deleted, flush and reopen."""
+    ground truth, a 1% filter, 0.1% deleted, flush and reopen. Returns
+    the gather kernel's headline timings (b16, k = 40, on this store)."""
     import torch
     from tpu_vector_db_torch import TorchVectorStore, create_vector_store
     path = tmp / "cap_int8"
@@ -4274,6 +4353,19 @@ def capacity_int8(g, rng, tmp: Path, n: int, errs: dict) -> None:
           "ids_ok": ids_ok})
     check(keys_ok and ids_ok, "a full gather-IVF probe differs from the "
           f"exact int8 scan (key error {err})")
+    # the gather kernel against its plain version on this store; the
+    # refine's 40 candidates at b16 (the benchmark's ivfsq8 call) timed
+    with uncounted():
+        for k in (5, 10, 40):
+            for q_n in (1, 8, 16):
+                out = hold_gather(store, "capacity", qs[:q_n], k, errs,
+                                  timed=(q_n, k) == (16, 40))
+                if (q_n, k) == (16, 40):
+                    gather = dict(design="gather probe", ms=out["kernel_ms"],
+                                  device_ms=out["device_ms"],
+                                  plain_ms=out["plain_ms"],
+                                  bound_ms=out["bound_ms"],
+                                  bound_by=out["bound_by"], library_ms=None)
     capacity_device(store, qs, "int8")
     with uncounted():
         capacity_kernels(store, qs, "int8", errs,
@@ -4326,6 +4418,7 @@ def capacity_int8(g, rng, tmp: Path, n: int, errs: dict) -> None:
         hold_store(store, "capacity", qs, 10, errs)
     del store, gt_host
     free_card()
+    return gather
 
 
 def capacity_int4(g, rng, tmp: Path, n: int, errs: dict) -> None:
@@ -4422,20 +4515,22 @@ def capacity_int4(g, rng, tmp: Path, n: int, errs: dict) -> None:
 
 
 def path_capacity(g, seed: int, tmp: Path, counts: dict,
-                  errs: dict) -> None:
+                  errs: dict) -> dict:
     """The capacity modes through the store: int8 (exact, rerank, the
     gather IVF) and int4 (exact, rerank) at the JAX package's rows or the
-    cut the host, the disk or the script's time forces; the guard."""
+    cut the host, the disk or the script's time forces; the guard.
+    Returns the gather kernel's headline timings."""
     t_path = time.perf_counter()
     tmp.mkdir(parents=True, exist_ok=True)
     free_card()
     rows, env = capacity_sizes(tmp)
     emit(env)
     rng = np.random.default_rng(seed + 12)
-    with counting("capacity", FLAT_SCANS + ("merge_small_k",), counts):
+    with counting("capacity", FLAT_SCANS + ("merge_small_k",
+                                            "ivf_gather_kernel"), counts):
         capacity_guard(tmp)
         t0 = time.perf_counter()
-        capacity_int8(g, rng, tmp, rows["int8"], errs)
+        headline = capacity_int8(g, rng, tmp, rows["int8"], errs)
         int8_s = time.perf_counter() - t0
         shutil.rmtree(tmp / "cap_int8", ignore_errors=True)
         t0 = time.perf_counter()
@@ -4445,6 +4540,7 @@ def path_capacity(g, seed: int, tmp: Path, counts: dict,
     emit({"phase": "capacity", "case": "seconds", "int8_seconds": int8_s,
           "int4_seconds": int4_s,
           "path_seconds": time.perf_counter() - t_path})
+    return headline
 
 
 def main() -> int:
@@ -4515,7 +4611,8 @@ def main() -> int:
                                           counts, errs, record)
         timed(path_multihost, g, tmp, counts, record)
         timed(path_pipeline, g, args.seed, tmp, counts, errs)
-        timed(path_capacity, g, args.seed, tmp, counts, errs)
+        headline["ivf_gather_kernel"] = timed(path_capacity, g, args.seed,
+                                              tmp, counts, errs)
         emit({"phase": "seconds", "by_phase": seconds,
               "total": time.perf_counter() - t_script})
         kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
@@ -4526,7 +4623,8 @@ def main() -> int:
                                          counts.items() if c.get(name)},
                     "max_abs_err": errs[name], **headline[name]}
                    for name in ("scan_kernel", "scan_kernel_bigk",
-                                "ivf_kernel", "merge_small_k")]
+                                "ivf_kernel", "ivf_gather_kernel",
+                                "merge_small_k")]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"kernels": kernels})

@@ -12,7 +12,8 @@ the true cosine of the stored point.
 
 With enable_ann=True the store builds a GATHER-layout IVF on top: the
 index holds only a ~4 B/row id table and probes gather their rows from
-the flat matrix (torch ops, ``index/ivf.py``).
+the flat matrix (``index/ivf.py``; on the card the kernel
+``ivf_gather_kernel`` in ``csrc/ivf_topk.cu``).
 
   python examples/torch_capacity_mode.py [--device cpu] [--root DIR]
 """

@@ -35,6 +35,7 @@ FROZEN = {
     "remediate_max_refines": 2,
     "recall_warn": 0.90,
     "recall_floor": 0.50,
+    "ivf_gather_large_k": False,
 }
 
 IVF_FIELDS = ("nprobe", "n_clusters", "bucket_rows", "train_iters")

@@ -21,7 +21,10 @@ package opens in the other:
     k > 32 on a CPU tensor only; on a CUDA tensor such a search raises
     ValueError (the store sends k > 32 to the exact big-k scan);
   - ``"gather"``: int8/int4 stores (and bf16 with ``layout="gather"``)
-    keep no row copy; probes gather rows from the store's flat matrix.
+    keep no row copy; probes gather rows from the store's flat matrix,
+    through the CUDA kernel ``ivf_gather_kernel``
+    (``ops/ivf_scan.ivf_gather_topk``), k <= 64 on a CUDA tensor (its
+    plain version, any k, on the CPU).
   Keys and ids come back in ONE device-to-host copy (``ops/topk.to_host``).
 * ADD assigns new rows to the nearest existing centroid and fills bucket
   free slots, spilling into new buckets; the device copy is updated in
@@ -37,10 +40,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpu_vector_db_torch.monitoring import tracing
 from tpu_vector_db_torch.ops import kmeans
-from tpu_vector_db_torch.ops.ivf_scan import (MAX_IVF_KERNEL_K,
+from tpu_vector_db_torch.ops.ivf_scan import (MAX_GATHER_KERNEL_K,
+                                              MAX_IVF_KERNEL_K,
+                                              ivf_gather_topk,
                                               ivf_probe_topk,
-                                              ivf_probe_topk_gather,
                                               ivf_probe_topk_plain)
 from tpu_vector_db_torch.ops.topk import NEG_INF, to_host, top_k
 from tpu_vector_db_torch.utils.fs import atomic_save_npz
@@ -70,21 +75,60 @@ def _select_buckets(queries, centroids, bucket_cluster, nprobe: int,
     return top_k(bscore, nprobe)[1]
 
 
+def kernel_k_limit(gather: bool) -> int:
+    """The largest k an IVF probe serves on a CUDA device: the gather
+    layout's kernel keeps two list entries a lane (64), the bucketized
+    one one (32)."""
+    return MAX_GATHER_KERNEL_K if gather else MAX_IVF_KERNEL_K
+
+
+def _probe_rows(sel, fills):
+    """Reader of the live rows a probe of ``sel`` scores (the probed
+    buckets' fills summed), for tracing. On the card the sum and its copy
+    to the host are queued before the probe and only they are waited
+    for, so reading it does not wait for the probe."""
+    total = fills[sel.long()].sum()
+    if total.device.type != "cuda":
+        return lambda: int(total)
+    host = torch.empty((), dtype=total.dtype, pin_memory=True)
+    host.copy_(total, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(total.device))
+
+    def read() -> int:
+        done.synchronize()
+        return int(host)
+    return read
+
+
 def _select_and_probe(q, dev: dict, db, scales, nprobe: int, metric: str,
                       k: int, layout: str):
-    """Centroid selection + bucket probe: (keys (Q, k), ids (Q, k))."""
+    """Centroid selection + bucket probe: (keys (Q, k), ids (Q, k)).
+
+    The probe is the span ``index.probe``, with ``slots`` (Q x nprobe x
+    bucket rows) and ``rows``, the live rows it scored (the probed
+    buckets' fills summed), worked out only while tracing is on and
+    without waiting for the probe (``_probe_rows``): the span holds the
+    probe's launches, not its device time."""
     sel = _select_buckets(q, dev["centroids"], dev["bucket_cluster"], nprobe,
                           metric, dev["c_sqnorms"])
-    if layout == "gather":
-        return ivf_probe_topk_gather(q, db, dev["ids"], sel, k,
-                                     metric=metric, db_scales=scales)
-    if layout == "kernel":
-        return ivf_probe_topk(q, dev["buckets"], dev["ids"], dev["fills"],
-                              sel, k, metric=metric,
-                              bucket_sqnorms=dev.get("sqnorms"))
-    return ivf_probe_topk_plain(q, dev["buckets"], dev["ids"], sel, k,
-                                metric=metric,
-                                bucket_sqnorms=dev.get("sqnorms"))
+    with tracing.span("index.probe"):
+        rows = _probe_rows(sel, dev["fills"]) if tracing.on() else None
+        if layout == "gather":
+            out = ivf_gather_topk(q, db, dev["ids"], dev["fills"], sel, k,
+                                  metric=metric, db_scales=scales)
+        elif layout == "kernel":
+            out = ivf_probe_topk(q, dev["buckets"], dev["ids"], dev["fills"],
+                                 sel, k, metric=metric,
+                                 bucket_sqnorms=dev.get("sqnorms"))
+        else:
+            out = ivf_probe_topk_plain(q, dev["buckets"], dev["ids"], sel, k,
+                                       metric=metric,
+                                       bucket_sqnorms=dev.get("sqnorms"))
+        if rows is not None:
+            tracing.annotate("slots", sel.numel() * dev["ids"].shape[1])
+            tracing.annotate("rows", rows())
+    return out
 
 
 def _scatter_rows(buckets, flat_pos, rows):
@@ -397,15 +441,24 @@ class IVFIndex:
         store's maximize convention). queries must be PREPARED like db
         rows (int8/int4 stores pass f32 unit-norm queries and, for int4,
         the per-row scales; int8 keys come back in the raw x127 scale).
-        A bucketized index on a CUDA device serves k <= 32 only: wider
-        queries take the exact scan."""
+        On a CUDA device a bucketized index serves k <= 32 and one in
+        the gather layout k <= 64 (``kernel_k_limit``): wider queries
+        take the exact scan. The store sends the gather layout queries
+        past k = 32 only where its ``ann_params["ivf_gather_large_k"]``
+        is True (default False, the JAX store's routing).
+
+        While tracing is on (``monitoring/tracing.py``) the current span
+        (the store's ``index.search``) gains ``layout`` (``gather``,
+        ``kernel`` or ``plain``), ``nprobe`` (the one used) and
+        ``bucket_rows``; the probe after bucket selection is the span
+        ``index.probe``."""
         if not self.built:
             raise RuntimeError("index not built")
-        if (k > MAX_IVF_KERNEL_K and db.device.type == "cuda"
-                and not self._gather_layout(db)):
+        limit = kernel_k_limit(self._gather_layout(db))
+        if k > limit and db.device.type == "cuda":
             raise ValueError(
-                f"the IVF probe kernel supports k <= {MAX_IVF_KERNEL_K} on "
-                f"a CUDA device, got k={k}; use the exact scan")
+                f"the IVF probe kernel supports k <= {limit} on a CUDA "
+                f"device, got k={k}; use the exact scan")
         self._ensure_device(db, sqnorms)
         dev = self._dev
         nb = dev["ids"].shape[0]
@@ -417,6 +470,9 @@ class IVFIndex:
             layout = "kernel"
         else:                             # a CPU tensor (checked above)
             layout = "plain"
+        tracing.annotate("layout", layout)
+        tracing.annotate("nprobe", p)
+        tracing.annotate("bucket_rows", int(dev["ids"].shape[1]))
         keys, ids = to_host(*_select_and_probe(
             q, dev, db if layout == "gather" else None, scales, p,
             self.metric, k, layout))

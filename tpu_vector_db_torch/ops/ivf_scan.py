@@ -15,7 +15,13 @@ its centroid scores chose.
   (any k, any metric, any device) and the kernel's plain version.
 * ``ivf_probe_topk_gather`` is the counterpart of
   ``ivf_probe_topk_gather``: probes gather their rows from the store's
-  flat int8/int4/bf16 matrix, with no bucketized copy.
+  flat int8/int4/bf16 matrix, with no bucketized copy. It is the plain
+  version of ``ivf_gather_topk``, which launches the kernel
+  ``ivf_gather_kernel`` (``vdb_ivf_gather_topk`` in ``csrc/ivf_topk.cu``)
+  for bf16, int8 or int4 rows on a CUDA tensor, cosine/dot, k <= 64
+  (``MAX_GATHER_KERNEL_K``), and adds one to
+  ``LAUNCHES["ivf_gather_kernel"]`` a launch; it uses the plain probe
+  only for a tensor on the CPU.
 * ``merge_small_k`` runs the k <= 32 merge of both scans' candidate lists
   (``merge_small_k`` in ``csrc/topk_common.cuh``, the second launch of
   ``ivf_kernel`` and of the flat ``scan_kernel``) alone: the sharded
@@ -43,7 +49,10 @@ from tpu_vector_db_torch.ops.topk import (MERGE_SMALL_MAX_K, NEG_INF,
                                           merge_topk, sort_by_key_then_id)
 
 MAX_IVF_KERNEL_K = MERGE_SMALL_MAX_K
+# the gather kernel's largest k: two list entries a lane
+MAX_GATHER_KERNEL_K = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_GATHER_CODES = {torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 # blocks the kernel aims for (about 8 per SM on the 132 SMs), and the
 # fewest bucket rows one block scans
 _TARGET_BLOCKS = 1056
@@ -57,6 +66,9 @@ def _signatures(lib: ctypes.CDLL) -> None:
     lib.vdb_ivf_topk.restype = i
     lib.vdb_merge_small_k.argtypes = [p, p, i, i, i, p, p, i, p]
     lib.vdb_merge_small_k.restype = i
+    lib.vdb_ivf_gather_topk.argtypes = [
+        p, i, i, p, i, p, i, i, p, i, p, p, i, i, p, p, p, p, p]
+    lib.vdb_ivf_gather_topk.restype = i
 
 
 LIBRARY = Library(CSRC / "ivf_topk.cu", _signatures)
@@ -174,6 +186,91 @@ def ivf_probe_topk_gather(queries, db_flat, bucket_ids, sel, k: int,
 
     vals, idx = _probe_loop(q_n, n_probe, k_eff, dev, probe_scores)
     return _pad_k(vals, idx, k)
+
+
+def ivf_gather_topk(queries, db_flat, bucket_ids, bucket_fills, sel,
+                    k: int, metric: str = "cosine", db_scales=None):
+    """Probe scan of the gather layout, cosine/dot, k <= 64 on the card:
+    the kernel ``ivf_gather_kernel`` for a CUDA tensor,
+    ``ivf_probe_topk_gather`` (its plain version, any k) for a CPU
+    tensor. Arguments as ``ivf_probe_topk_gather``'s, with bucket_fills
+    (NB,) i32, the live slots of each bucket (its ids past the fill are
+    -1). Returns (keys (Q, k) f32, global ids (Q, k) i32, -1 in empty
+    slots); int8 keys in the raw x127 scale."""
+    if metric == "euclidean":
+        raise ValueError("gather-layout probes are cosine/dot only "
+                         "(quantized capacity modes are cosine by config)")
+    if db_flat.device.type == "cpu":
+        return ivf_probe_topk_gather(queries, db_flat, bucket_ids, sel, k,
+                                     metric=metric, db_scales=db_scales)
+    if db_flat.device.type != "cuda":
+        raise ValueError(
+            f"ivf_gather_topk runs on cuda or cpu, got {db_flat.device}")
+    if not 1 <= k <= MAX_GATHER_KERNEL_K:
+        raise ValueError(f"the gather probe kernel supports 1 <= k <= "
+                         f"{MAX_GATHER_KERNEL_K}, got {k}")
+    if db_flat.dtype not in _GATHER_CODES:
+        raise ValueError(f"the gather probe kernel takes bf16, int8 or "
+                         f"uint8-packed int4 rows, got {db_flat.dtype}")
+    if db_flat.dtype == torch.uint8 and db_scales is None:
+        raise ValueError("uint8-packed int4 db needs db_scales")
+    nb, bc = bucket_ids.shape
+    d_pad = db_flat.shape[1] * (2 if db_flat.dtype == torch.uint8 else 1)
+    if queries.ndim != 2 or queries.shape[1] != d_pad:
+        raise ValueError(
+            f"queries must be (Q, {d_pad}), got {tuple(queries.shape)}")
+    if sel.ndim != 2 or sel.shape[0] != queries.shape[0] \
+            or bucket_fills.shape[0] != nb:
+        raise ValueError("sel must be (Q, nprobe) and bucket_fills (NB,)")
+    if not db_flat.is_contiguous() or db_flat.data_ptr() % 16:
+        raise ValueError("db_flat must be contiguous and 16-byte aligned")
+    dev = db_flat.device
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError(
+            "csrc/ivf_topk.cu is built for sm_90a (Hopper); device "
+            f"{torch.cuda.get_device_name(dev)} is not")
+    return _gather_launch(queries, db_flat, bucket_ids, bucket_fills, sel, k,
+                          db_scales)
+
+
+def _gather_launch(queries, db_flat, bucket_ids, bucket_fills, sel, k: int,
+                   db_scales=None):
+    """One launch of ``vdb_ivf_gather_topk`` (the probe, then its merge)
+    over checked arguments: each (query, probe) bucket split in slices of
+    at least ``_MIN_ROWS_PER_SPLIT`` slots, so that about
+    ``_TARGET_BLOCKS`` blocks fill the card."""
+    lib = LIBRARY.load()
+    dev = db_flat.device
+    nb, bc = bucket_ids.shape
+    q_n, n_probe = sel.shape
+    # queries rounded to bf16, as the plain probe rounds them
+    q = queries.to(dev).to(torch.bfloat16).float().contiguous()
+    ids = bucket_ids.to(device=dev, dtype=torch.int32).contiguous()
+    fills = bucket_fills.to(device=dev, dtype=torch.int32).contiguous()
+    sel = sel.to(device=dev, dtype=torch.int32).contiguous()
+    scales = (db_scales.to(device=dev, dtype=torch.float32).contiguous()
+              if db_flat.dtype == torch.uint8 else None)
+    splits = max(1, min(-(-_TARGET_BLOCKS // (q_n * n_probe)),
+                        bc // _MIN_ROWS_PER_SPLIT))
+    cand_keys = torch.empty((q_n, n_probe * splits, k), dtype=torch.float32,
+                            device=dev)
+    cand_ids = torch.empty((q_n, n_probe * splits, k), dtype=torch.int32,
+                           device=dev)
+    keys = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_ids = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vdb_ivf_gather_topk(
+            q.data_ptr(), q_n, q.shape[1], db_flat.data_ptr(),
+            _GATHER_CODES[db_flat.dtype],
+            None if scales is None else scales.data_ptr(), nb, bc,
+            sel.data_ptr(), n_probe, fills.data_ptr(), ids.data_ptr(), k,
+            splits, cand_keys.data_ptr(), cand_ids.data_ptr(),
+            keys.data_ptr(), out_ids.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_gather_topk kernel failed: CUDA error {err}")
+    record("ivf_gather_kernel")
+    return keys, out_ids
 
 
 def _check(queries, db_buckets, bucket_ids, bucket_fills, sel, k, metric,

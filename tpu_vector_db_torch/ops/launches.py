@@ -10,9 +10,10 @@ from __future__ import annotations
 import threading
 
 # merge_small_k counts its launches alone (the k·P merge of the sharded
-# paths); the merge stage inside scan_kernel and ivf_kernel counts as theirs
+# paths); the merge stage inside scan_kernel, ivf_kernel and
+# ivf_gather_kernel counts as theirs
 LAUNCHES = {"scan_kernel": 0, "scan_kernel_bigk": 0, "ivf_kernel": 0,
-            "merge_small_k": 0}
+            "merge_small_k": 0, "ivf_gather_kernel": 0}
 _lock = threading.Lock()
 
 

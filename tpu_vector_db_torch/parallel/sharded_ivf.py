@@ -17,8 +17,10 @@ answers as one process of P = W·L shards does.
   CUDA tensor (its plain version on a CPU tensor), k <= 32. The JAX module
   probes with the XLA probe here.
 * Gather mode (int8/int4 stores): no bucket copy; probes gather their
-  rows from the store's shard (``ivf_probe_topk_gather``), as the port's
-  ``IVFIndex`` does. int8 keys come back in the raw x127 scale.
+  rows from the store's shard (``ops/ivf_scan.ivf_gather_topk``: the
+  gather probe kernel on a CUDA tensor, k <= 64; its plain version on a
+  CPU tensor), as the port's ``IVFIndex`` does. int8 keys come back in
+  the raw x127 scale.
 
 Coverage: nprobe buckets PER SHARD, so P shards scan P times the buckets
 of one index at the same nprobe; with nprobe >= every local bucket the
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from tpu_vector_db_torch.index.ivf import (IVFIndex, _next_pow2,
-                                           _select_and_probe)
+                                           _select_and_probe, kernel_k_limit)
 from tpu_vector_db_torch.ops.ivf_scan import MAX_IVF_KERNEL_K
 from tpu_vector_db_torch.parallel.mesh import Mesh, local_count
 from tpu_vector_db_torch.parallel.sharded_scan import _to, merge_shards
@@ -205,16 +207,14 @@ class ShardedIVF:
                 continue
             dev = sub._dev
             q = _to(queries, dev["ids"].device).float()
-            if sub._layout == "gather":
-                layout = "gather"
-            elif k <= MAX_IVF_KERNEL_K:
-                layout = "kernel"
-            elif q.device.type == "cpu":
-                layout = "plain"
-            else:
+            gather = sub._layout == "gather"
+            limit = kernel_k_limit(gather)
+            if k > limit and q.device.type != "cpu":
                 raise ValueError(
-                    f"the IVF probe kernel supports k <= {MAX_IVF_KERNEL_K}"
-                    f" on a CUDA device, got k={k}; use the exact scan")
+                    f"the IVF probe kernel supports k <= {limit} on a CUDA"
+                    f" device, got k={k}; use the exact scan")
+            layout = ("gather" if gather else
+                      "kernel" if k <= MAX_IVF_KERNEL_K else "plain")
             p = min(nprobe or self.nprobe, len(sub._bucket_cluster))
             k_s, i_s = _select_and_probe(
                 q, dev, db[s] if layout == "gather" else None,

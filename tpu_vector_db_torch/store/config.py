@@ -33,6 +33,14 @@ _ITEM_BYTES = {"float32": 4.0, "bfloat16": 2.0, "int8": 1.0, "int4": 0.5}
 # ef_construction, alpha, entry_cap, insert_budget_div, refine_budget_div)
 # take their defaults from the index classes' signatures, and
 # remediate_nprobe_max defaults to the clusters that were built.
+# ivf_gather_large_k: True lets an IVF index in the gather layout (int8 /
+# int4 rows, or bf16 with ivf_layout "gather") serve a query that fetches
+# 33 to 64 candidates (a refine's k x oversample at k <= 16, say), up to
+# its probe kernel's k = 64; False, as in the JAX store, sends every fetch
+# past 32 to the exact scan, and so do both settings past 64 and the
+# bucketized layout, whose probe kernel stops at k = 32. The default keeps
+# the JAX store's answers; a deployment that wants IVF_SQ8 with refine
+# (benchmark_h100/configs/cohere768-8m-ivf-int8.json) turns it on.
 ANN_DEFAULTS = {
     "index_type": "auto",
     "ef_search": 100,
@@ -50,6 +58,7 @@ ANN_DEFAULTS = {
     "remediate_max_refines": 2,
     "recall_warn": 0.90,
     "recall_floor": 0.50,
+    "ivf_gather_large_k": False,
 }
 
 

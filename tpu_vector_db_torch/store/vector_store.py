@@ -56,7 +56,7 @@ import torch
 from tpu_vector_db_torch.ops import distance as D
 from tpu_vector_db_torch.index import native
 from tpu_vector_db_torch.index.beam_graph import BeamGraphIndex
-from tpu_vector_db_torch.index.ivf import IVFIndex
+from tpu_vector_db_torch.index.ivf import IVFIndex, kernel_k_limit
 from tpu_vector_db_torch.monitoring import tracing
 from tpu_vector_db_torch.ops.cuda_scan import flat_topk
 from tpu_vector_db_torch.ops.quant4 import quantize_unit_rows
@@ -687,11 +687,17 @@ class TorchVectorStore:
             # routing: ANN only past ann_min_rows (0: always, when enabled)
             min_rows = ann_param(p, "ann_min_rows")
             # IVF large-k: past the probe kernel's k = 32 the exact big-k
-            # scan serves the query. Tombstones post-filter out of ANN
-            # results like filters, and share their oversample
+            # scan serves the query; ivf_gather_large_k lets an index in
+            # the gather layout keep it up to its kernel's k = 64.
+            # Tombstones post-filter out of ANN results like filters, and
+            # share their oversample
             fetch_k = self._post_filter_fetch_k(k_engine,
                                                 bool(filter_metadata))
-            ivf_large_k = self._ann_kind == "ivf" and fetch_k > 32
+            gather_k = bool(ann_param(p, "ivf_gather_large_k")
+                            and isinstance(self._ann, IVFIndex)
+                            and self._ann._gather_layout(self._db))
+            ivf_large_k = (self._ann_kind == "ivf"
+                           and fetch_k > kernel_k_limit(gather_k))
             # a filter that keeps few rows, or a mostly deleted store,
             # would post-filter the ANN oversample to fewer than k hits;
             # the masked exact scan is exact there
